@@ -1,0 +1,117 @@
+// All 67 intra prediction modes of N square S x S blocks.
+//
+// Replaces vvc/kernels/intra.py:671 predict_all_modes_batch (a jitted jnp
+// gather + multiply-add over static tables on the TPU).  Integer semantics
+// are those of the reference, exactly:
+//   * planar and DC, each followed by the two-sided PDPC blend;
+//   * vertical family (modes 34..66): 4-tap filter over the reference
+//     line C with the stacked tables idx/co [33,4,S,S], then angular PDPC
+//     (tables W/I [33,S,S], diff [33]);
+//   * horizontal family (modes 2..33): vertical mode 68-m applied to the
+//     reversed line ct(i) = C[max(4S-i, 0)] and transposed — the transpose
+//     is index math on the table element, not a copy;
+//   * clip to [0, 2^bd - 1].
+// Right shifts of negative PDPC terms are arithmetic, as in jnp.
+//
+// Grid (N, 67): one CTA per (block, mode), looping over the S*S samples.
+// The block's reference line (at most 259 ints) is staged in shared memory.
+// Bound: bytes — each output sample is written once (67*N*S*S*4 B per
+// size); the tables (<= 4.3 MB at S=64) stay resident in L2.  Fusing this
+// with the SATD that consumes it, so the [N,67,S,S] tensor never reaches
+// HBM, is the next step for speed.
+#include <cuda_runtime.h>
+
+#define MAX_LINE (4 * 64 + 3)
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__global__ void intra_pred_all_kernel(
+    const int* __restrict__ refs, int s, int log2s, int maxv,
+    const int* __restrict__ idx, const int* __restrict__ co,
+    const int* __restrict__ pw, const int* __restrict__ pi,
+    const int* __restrict__ pdiff, int* __restrict__ out) {
+  __shared__ int c[MAX_LINE];
+  const int len = 4 * s + 3;
+  const int b = blockIdx.x;
+  const int m = blockIdx.y;
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    c[i] = refs[(long long)b * len + i];
+  __syncthreads();
+
+  const int ss = s * s;
+  int* o = out + ((long long)b * 67 + m) * ss;
+
+  if (m <= 1) {
+    int dc = 0;
+    if (m == 1) {
+      // top[0..S-1] = C[2S+1..3S], left[0..S-1] = C[2S-1..S]
+      int sum = 0;
+      for (int k = 0; k < s; ++k) sum += c[2 * s + 1 + k] + c[s + k];
+      dc = (sum + s) >> (log2s + 1);
+    }
+    const int scale = (2 * log2s - 2) >> 2;
+    const int below_left = c[s - 1];      // left[S]
+    const int above_right = c[3 * s + 1]; // top[S]
+    for (int t = threadIdx.x; t < ss; t += blockDim.x) {
+      const int y = t >> log2s, x = t & (s - 1);
+      const int left_y = c[2 * s - 1 - y];
+      const int top_x = c[2 * s + 1 + x];
+      int p;
+      if (m == 0) {
+        const int pv = ((s - 1 - y) * top_x + (y + 1) * below_left) << log2s;
+        const int ph = ((s - 1 - x) * left_y + (x + 1) * above_right) << log2s;
+        p = (pv + ph + ss) >> (2 * log2s + 1);
+      } else {
+        p = dc;
+      }
+      const int wl = 32 >> min(31, (2 * x) >> scale);
+      const int wt = 32 >> min(31, (2 * y) >> scale);
+      p = (wl * left_y + wt * top_x + (64 - wl - wt) * p + 32) >> 6;
+      o[t] = clampi(p, 0, maxv);
+    }
+    return;
+  }
+
+  const bool vert = m >= 34;
+  const int pos = vert ? m - 34 : 34 - m;  // table position of vertical mode
+  const int* ti = idx + (long long)pos * 4 * ss;
+  const int* tc = co + (long long)pos * 4 * ss;
+  const int* tw = pw + (long long)pos * ss;
+  const int* tI = pi + (long long)pos * ss;
+  const int diff = pdiff[pos];
+  const int corner = c[2 * s];  // also ct[2S]
+  const int rev = 4 * s;
+  for (int t = threadIdx.x; t < ss; t += blockDim.x) {
+    const int y = t >> log2s, x = t & (s - 1);
+    const int e = vert ? t : ((x << log2s) | y);  // transposed for horizontal
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int id = ti[k * ss + e];
+      const int r = vert ? c[id] : c[max(rev - id, 0)];
+      acc += tc[k * ss + e] * r;
+    }
+    int p = (acc + 32) >> 6;
+    const int wgt = tw[e];
+    const int id = tI[e];
+    const int ref = vert ? c[id] : c[max(rev - id, 0)];
+    p += diff ? (wgt * (ref - corner)) >> 6 : (wgt * (ref - p) + 32) >> 6;
+    o[t] = clampi(p, 0, maxv);
+  }
+}
+
+extern "C" int intra_pred_all_launch(const int* refs, int n, int s, int log2s,
+                                     int bit_depth, const int* idx,
+                                     const int* co, const int* pw,
+                                     const int* pi, const int* pdiff,
+                                     int* out, void* stream) {
+  if (n == 0) return 0;
+  if (s > 64 || s < 4) return (int)cudaErrorInvalidValue;
+  const int threads = s * s < 256 ? s * s : 256;
+  dim3 grid((unsigned)n, 67);
+  intra_pred_all_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      refs, s, log2s, (1 << bit_depth) - 1, idx, co, pw, pi, pdiff, out);
+  return (int)cudaGetLastError();
+}

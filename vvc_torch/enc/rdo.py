@@ -1,0 +1,853 @@
+"""Batched intra RDO: enumerate–mask–reduce partition/mode search.
+
+Port of vvc/enc/rdo.py (reference: EncCu.cpp → xCompressCU; IntraSearch.cpp
+→ estIntraPredLumaQT's SATD prescreen):
+
+  1. For every QT candidate size (8..64), evaluate ALL blocks of the frame
+     at that size on the device: reference lines from the original plane
+     (`build_ref_lines_device`, CUDA kernel csrc/ref_lines.cu), 67-mode
+     prediction (vvc_torch.kernels.intra, csrc/intra_pred.cu) and SATD
+     (vvc_torch.kernels.satd, csrc/satd.cu), then the per-block min/argmin
+     of SATD + √λ·mode bits.  One packed int32 vector per frame comes back.
+  2. The host DP over the size pyramid (`_dp_backtrack`, copied unchanged)
+     picks split/leaf per node.
+
+Slice 1 ports the lossless (transquant-bypass) search, where SATD is the
+rate proxy and no RD stage runs.  The lossy RD stage (transform, quant,
+level rate, MIP, LFNST, CCLM, ISP) and the MTT lattice raise
+NotImplementedError until slice 2.
+
+Deviation from vvc: the JAX program also evaluates the TT middle-child
+planes (`_tt_descriptors`) for the QT-only candidate list, whose DP never
+reads them; the port searches them only with MTT.  The square-shape part
+of the packed vector is bit-equal to vvc's.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from vvc_torch import ops
+from vvc_torch.kernels.intra import predict_all_modes_batch
+from vvc_torch.kernels.satd import satd_batch
+from vvc_torch.model.frame import Leaf
+from vvc_torch.utils.trace import active as _trace
+from vvc_torch.model.partition import (SPLIT_NONE, SPLIT_QT,
+                                       SPLIT_BT_H, SPLIT_BT_V)
+
+# approximate mode signalling cost in bits (MPM statistics analog)
+_MODE_BITS = np.full((67,), 7.0, dtype=np.float32)
+_MODE_BITS[0] = 2.5   # planar (MPM[0])
+_MODE_BITS[1] = 4.0   # DC
+_MODE_BITS[18] = 5.0
+_MODE_BITS[50] = 5.0
+
+# float32 bits of λ = 0.57·2^((qp−12)/3) and √λ for qp 0..63, as the JAX
+# reference computes them (XLA's exp2 differs from libm's in the last bit
+# for many qp, and the packed costs are compared bit for bit by the DP).
+LAMBDA_F32_BITS = (
+    0x3d11eb85, 0x3d37d902, 0x3d67a231, 0x3d91eb85, 0x3db7d902, 0x3de7a231,
+    0x3e11eb85, 0x3e37d902, 0x3e67a231, 0x3e91eb85, 0x3eb7d902, 0x3ee7a231,
+    0x3f11eb85, 0x3f37d902, 0x3f67a231, 0x3f91eb85, 0x3fb7d902, 0x3fe7a231,
+    0x4011eb85, 0x4037d902, 0x4067a231, 0x4091eb85, 0x40b7d902, 0x40e7a231,
+    0x4111eb85, 0x4137d902, 0x4167a231, 0x4191eb85, 0x41b7d902, 0x41e7a231,
+    0x4211eb85, 0x4237d902, 0x4267a231, 0x4291eb85, 0x42b7d902, 0x42e7a231,
+    0x4311eb85, 0x4337d902, 0x4367a231, 0x4391eb85, 0x43b7d902, 0x43e7a231,
+    0x4411eb85, 0x4437d902, 0x4467a231, 0x4491eb85, 0x44b7d902, 0x44e7a239,
+    0x4511eb85, 0x4537d8fc, 0x4567a232, 0x4591eb8a, 0x45b7d902, 0x45e7a22a,
+    0x4611eb85, 0x4637d907, 0x4667a232, 0x4691eb80, 0x46b7d902, 0x46e7a239,
+    0x4711eb85, 0x4737d8fc, 0x4767a232, 0x4791eb8a)
+SQRT_LAMBDA_F32_BITS = (
+    0x3e414698, 0x3e58f1d9, 0x3e738320, 0x3e88aaa6, 0x3e996730, 0x3eac306b,
+    0x3ec14698, 0x3ed8f1d9, 0x3ef38320, 0x3f08aaa6, 0x3f196730, 0x3f2c306b,
+    0x3f414698, 0x3f58f1d9, 0x3f738320, 0x3f88aaa6, 0x3f996730, 0x3fac306b,
+    0x3fc14698, 0x3fd8f1d9, 0x3ff38320, 0x4008aaa6, 0x40196730, 0x402c306b,
+    0x40414698, 0x4058f1d9, 0x40738320, 0x4088aaa6, 0x40996730, 0x40ac306b,
+    0x40c14698, 0x40d8f1d9, 0x40f38320, 0x4108aaa6, 0x41196730, 0x412c306b,
+    0x41414698, 0x4158f1d9, 0x41738320, 0x4188aaa6, 0x41996730, 0x41ac306b,
+    0x41c14698, 0x41d8f1d9, 0x41f38320, 0x4208aaa6, 0x42196730, 0x422c306e,
+    0x42414698, 0x4258f1d5, 0x42738320, 0x4288aaa9, 0x42996730, 0x42ac3068,
+    0x42c14698, 0x42d8f1dc, 0x42f38320, 0x4308aaa4, 0x43196730, 0x432c306e,
+    0x43414698, 0x4358f1d5, 0x43738320, 0x4388aaa9)
+
+
+def lambda_f32(qp: int) -> tuple[np.float32, np.float32]:
+    """(λ, √λ) as float32 for the device search, from the bit tables."""
+    bits = np.array([LAMBDA_F32_BITS[qp], SQRT_LAMBDA_F32_BITS[qp]],
+                    dtype=np.uint32)
+    lam, sqrt_lam = bits.view(np.float32)
+    return lam, sqrt_lam
+
+
+def rd_lambda(qp: int) -> float:
+    """λ for intra RD (reference: EncSlice::setUpLambda, SURVEY.md §3.5)."""
+    return 0.57 * (2.0 ** ((qp - 12) / 3.0))
+
+
+def _slice2(what: str):
+    return NotImplementedError(
+        f"vvc_torch: {what} arrives with slice 2 (lossy All-Intra); "
+        "slice 1 runs lossless=True only")
+
+
+def build_ref_lines_device_plain(plane: torch.Tensor, xs: torch.Tensor,
+                                 ys: torch.Tensor, size: int,
+                                 bit_depth: int) -> torch.Tensor:
+    """Plain PyTorch twin of vvc/enc/rdo.py:59 build_ref_lines_device."""
+    h, w = plane.shape
+    s = size
+    mid = 1 << (bit_depth - 1)
+    xs = xs.long()
+    ys = ys.long()
+    k = torch.arange(2 * s, device=plane.device)
+    lx = (xs - 1).clamp(0, w - 1)
+    lyy = (ys[:, None] + k[None, :]).clamp(0, h - 1)
+    left = plane[lyy, lx[:, None]]
+    ty = (ys - 1).clamp(0, h - 1)
+    txx = (xs[:, None] + k[None, :]).clamp(0, w - 1)
+    top = plane[ty[:, None], txx]
+    corner = plane[ty, lx]
+    mid_t = torch.full_like(top, mid)
+    top = torch.where((ys > 0)[:, None], top,
+                      torch.where((xs > 0)[:, None], left[:, :1], mid_t))
+    corner = torch.where(ys > 0, corner,
+                         torch.where(xs > 0, left[:, 0], mid_t[:, 0]))
+    left = torch.where((xs > 0)[:, None], left,
+                       torch.where((ys > 0)[:, None], top[:, :1], mid_t))
+    return torch.cat([left.flip(1), corner[:, None], top, top[:, -1:],
+                      top[:, -1:]], dim=1).to(torch.int32)
+
+
+def _ref_lines_cuda(plane, xs, ys, size: int, bit_depth: int):
+    ops.check_cuda_i32("ref_lines", plane, xs, ys)
+    h, w = plane.shape
+    n = xs.shape[0]
+    if ys.shape != (n,):
+        raise ValueError("ref_lines: xs and ys must be [N]")
+    out = torch.empty((n, 4 * size + 3), dtype=torch.int32,
+                      device=plane.device)
+    fn = ops.lib("ref_lines").ref_lines_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    err = fn(plane.data_ptr(), h, w, xs.data_ptr(), ys.data_ptr(), n, size,
+             bit_depth, out.data_ptr(), ops.stream_ptr(plane))
+    ops.launched("ref_lines", err)
+    return out
+
+
+def build_ref_lines_device(plane: torch.Tensor, xs: torch.Tensor,
+                           ys: torch.Tensor, size: int,
+                           bit_depth: int) -> torch.Tensor:
+    """Device-side reference lines from the original plane for N blocks.
+
+    Availability approximated by edge clamping (equivalent to spec
+    substitution at frame borders).  plane [H,W] int32, xs/ys [N] int32 →
+    [N, 4S+3] int32.  CUDA tensor → csrc/ref_lines.cu; CPU tensor or
+    `ops.plain()` → build_ref_lines_device_plain."""
+    if ops.use_kernel(plane):
+        return _ref_lines_cuda(plane, xs, ys, size, bit_depth)
+    return build_ref_lines_device_plain(plane, xs, ys, size, bit_depth)
+
+
+def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
+                bit_depth: int = 8, try_mts: bool = False,
+                lossless: bool = False, try_mip: bool = False,
+                try_lfnst: bool = False, h: int | None = None):
+    """[N,S,S] originals + [N,4S+3] refs → (best_cost [N] f32, best_mode
+    [N] i32, best_mts [N] i32, best_lfnst [N] i32).
+
+    Lossless (transquant bypass): SATD over the 67 modes + √λ·mode bits is
+    the whole cost; argmin keeps the first minimum like jnp.argmin."""
+    if not lossless or try_mts or try_mip or try_lfnst:
+        raise _slice2("the lossy RD stage (MTS/MIP/LFNST)")
+    if h is not None and h != size:
+        raise _slice2("rectangular (MTT) shapes")
+    _, sqrt_lam = lambda_f32(qp)
+    preds = predict_all_modes_batch(refs, size, bit_depth)      # [N,67,S,S]
+    satd = satd_batch(preds, orig)                              # [N,67]
+    # cost = satd + √λ·bits with ONE float32 rounding: the JAX program's
+    # XLA fusion contracts the multiply-add into an FMA.  In float64 the
+    # product (24-bit × 3-bit mantissas) and the sum are exact while
+    # satd < 2^26 (the 64×64 10-bit maximum is 6.7e7 < 2^26 = 6.71e7 at
+    # the smallest √λ), so the cast rounds the exact value once, as FMA does.
+    rate = float(sqrt_lam) * torch.from_numpy(
+        _MODE_BITS.astype(np.float64)).to(satd.device)
+    pre_cost = (satd.to(torch.float64) + rate[None, :]).to(torch.float32)
+    best_cost, best_mode = _min_argmin(pre_cost)
+    zeros = torch.zeros_like(best_mode)
+    return best_cost, best_mode, zeros, zeros
+
+
+def _min_argmin(cost: torch.Tensor):
+    """Per-row (min, argmin as int32); a tie goes to the lowest index, as
+    jnp.argmin does (torch.argmin returns the first minimal index)."""
+    best = torch.argmin(cost, dim=1)
+    return cost.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
+                    ny: int, nx: int, mts_enabled: bool = True,
+                    lossless: bool = False, lfnst_enabled: bool = True,
+                    chroma=None, h: int | None = None,
+                    isp_enabled: bool = False):
+    """Whole-frame single-size evaluation: plane [H,W] int32 →
+    (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32)."""
+    if not lossless or chroma is not None or isp_enabled:
+        raise _slice2("the lossy search (RD stage, chroma decision, ISP)")
+    s = size
+    if h is not None and h != s:
+        raise _slice2("rectangular (MTT) shapes")
+    dev = plane.device
+    blocks = (plane[:ny * s, :nx * s]
+              .reshape(ny, s, nx, s).permute(0, 2, 1, 3).reshape(-1, s, s)
+              .contiguous())
+    ys = (torch.arange(ny, dtype=torch.int32, device=dev) * s
+          ).repeat_interleave(nx)
+    xs = (torch.arange(nx, dtype=torch.int32, device=dev) * s).repeat(ny)
+    refs = build_ref_lines_device(plane, xs, ys, s, bit_depth)
+    cost, mode, mts, lfnst = eval_blocks(blocks, refs, s, qp, bit_depth,
+                                         lossless=True)
+    z = torch.zeros_like(mode)
+    return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
+            lfnst.reshape(ny, nx), z.reshape(ny, nx), z.reshape(ny, nx))
+
+
+def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
+                         lfnst=True, cb=None, cr=None, isp=False):
+    if cb is not None:
+        raise _slice2("the device chroma decision")
+    out = {}
+    for (bw, bh) in _as_shapes(sizes):
+        ny, nx = h // bh, w // bw
+        if ny and nx:
+            out[(bw, bh)] = eval_size_plane(plane, bw, qp, bit_depth, ny, nx,
+                                            lossless=lossless,
+                                            lfnst_enabled=lfnst, h=bh,
+                                            isp_enabled=isp)
+    if _tt_descriptors(sizes):
+        raise _slice2("TT middle-child planes (MTT)")
+    return out
+
+
+def _pack_results(out, sizes):
+    """Flatten the per-shape result dict into ONE int32 vector (cost planes
+    bitcast) so that one device→host transfer carries the whole search."""
+    parts = []
+    for sh in _as_shapes(sizes) + _tt_descriptors(sizes):
+        if sh not in out:
+            continue
+        c, m, t, l, cm, isp = out[sh]
+        parts += [c.contiguous().view(torch.int32).reshape(-1),
+                  m.reshape(-1), t.reshape(-1), l.reshape(-1),
+                  cm.reshape(-1), isp.reshape(-1)]
+    return torch.cat(parts)
+
+
+def _check_options(lossless, with_chroma, isp):
+    if not lossless:
+        raise _slice2("lossy search (lossless=False)")
+    if with_chroma:
+        raise _slice2("the device chroma decision")
+    if isp:
+        raise _slice2("ISP")
+
+
+def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
+                   w: int, h: int, lossless: bool = False,
+                   lfnst: bool = True, with_chroma: bool = False,
+                   isp: bool = False) -> torch.Tensor:
+    """All candidate sizes of one frame → ONE packed int32 vector on the
+    planes' device.  planes_vec: pack_planes(y) as a tensor.  Unpack with
+    unpack_results."""
+    _check_options(lossless, with_chroma, isp)
+    y, _, _ = _split_planes(planes_vec, w, h, False)
+    return _pack_results(_eval_all_sizes_impl(y, sizes, int(qp), bit_depth,
+                                              w, h, lossless, lfnst), sizes)
+
+
+def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
+                          bit_depth: int, w: int, h: int, f: int,
+                          lossless: bool = False, lfnst: bool = True,
+                          with_chroma: bool = False,
+                          isp: bool = False) -> torch.Tensor:
+    """[F] frames (or tile columns) → [F, per-frame packed length] int32.
+    The JAX program's vmap over frames is a frame loop here."""
+    _check_options(lossless, with_chroma, isp)
+    y, _, _ = _split_planes(planes_vec, w, h, False, f)
+    return torch.stack([
+        _pack_results(_eval_all_sizes_impl(y[i], sizes, int(qp), bit_depth,
+                                           w, h, lossless, lfnst), sizes)
+        for i in range(f)])
+
+
+def _to_device(vec: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(vec).to(ops.resolve_device(device))
+
+
+def rdo_partition(y_plane: np.ndarray, qp: int, bit_depth: int = 8,
+                  ctu_size: int = 64, min_cu: int = 8, lossless: bool = False,
+                  lfnst: bool = True, chroma_planes=None, mtt: bool = False,
+                  isp: bool = False, device=None):
+    """Full-frame partition + mode decision → (split_map, leaf_map,
+    leaves_zorder) for the syntax writer and the reconstruction pass.
+    device: None = CUDA (raises without it); "cpu" runs the plain path."""
+    return rdo_partition_finish(rdo_partition_dispatch(
+        y_plane, qp, bit_depth, ctu_size, min_cu, lossless, lfnst,
+        chroma_planes, mtt, isp, device))
+
+
+def rdo_partition_dispatch(y_plane, qp: int, bit_depth: int = 8,
+                           ctu_size: int = 64, min_cu: int = 8,
+                           lossless: bool = False, lfnst: bool = True,
+                           chroma_planes=None, mtt: bool = False,
+                           isp: bool = False, device=None):
+    """Async half of rdo_partition: queues the device search and returns
+    the packed result tensor at once (CUDA launches are asynchronous), so
+    the host pipeline overlaps with device compute.  Finish with
+    rdo_partition_finish."""
+    h, w = y_plane.shape
+    assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
+    if mtt:
+        raise _slice2("MTT")
+    shapes = _candidate_shapes(ctu_size, min_cu, mtt)
+    with_chroma = chroma_planes is not None
+    vec_dev = _to_device(pack_planes(y_plane, *(chroma_planes or (None, None))),
+                         device)
+    packed = eval_all_sizes(vec_dev, shapes, qp, bit_depth, w, h, lossless,
+                            lfnst, with_chroma, isp)
+    return (packed, w, h, qp, shapes, ctu_size, min_cu, mtt)
+
+
+def rdo_partition_finish(handle):
+    """Blocking half: transfer + DP backtrack."""
+    packed, w, h, qp, shapes, ctu_size, min_cu, mtt = handle
+    results = unpack_results(packed.cpu().numpy(), shapes, w, h)
+    return _dp_backtrack(results, w, h, qp, shapes, ctu_size, min_cu, mtt)
+
+
+def rdo_partition_frames(y_planes, qp: int, bit_depth: int = 8,
+                         ctu_size: int = 64, min_cu: int = 8,
+                         lossless: bool = False, lfnst: bool = True,
+                         chroma_planes=None, mtt: bool = False,
+                         isp: bool = False, device=None):
+    """Batched variant: list of [H,W] planes → list of per-frame
+    (split_map, leaf_map, leaves).  One upload and one transfer back."""
+    h, w = y_planes[0].shape
+    assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
+    if mtt:
+        raise _slice2("MTT")
+    shapes = _candidate_shapes(ctu_size, min_cu, mtt)
+    nf = len(y_planes)
+    with_chroma = chroma_planes is not None
+    vec = pack_planes(np.stack(y_planes),
+                      *((np.stack(chroma_planes[0]),
+                         np.stack(chroma_planes[1])) if with_chroma
+                        else (None, None)))
+    pk = eval_all_sizes_frames(_to_device(vec, device), shapes, qp,
+                               bit_depth, w, h, nf, lossless, lfnst,
+                               with_chroma, isp).cpu().numpy()
+    return [_dp_backtrack(unpack_results(pk[f], shapes, w, h), w, h, qp,
+                          shapes, ctu_size, min_cu, mtt)
+            for f in range(nf)]
+
+
+def rdo_partition_tiled(y_plane: np.ndarray, tiles, qp: int,
+                        bit_depth: int = 8, ctu_size: int = 64,
+                        min_cu: int = 8, lossless: bool = False,
+                        lfnst: bool = True, chroma_planes=None,
+                        mtt: bool = False, tile_results=None,
+                        isp: bool = False, device=None):
+    """Per-tile RDO: each tile column is searched on its own sub-plane
+    (prediction references clamp at the tile edge, matching the tile
+    reconstruction's availability).
+
+    tiles: [(tx0, tx1)] from tile_columns.  tile_results: optional
+    precomputed per-tile unpacked result dicts.  Returns frame-coordinate
+    (split_map, leaf_map, leaves)."""
+    h, w = y_plane.shape
+    if mtt:
+        raise _slice2("MTT")
+    shapes = _candidate_shapes(ctu_size, min_cu, mtt)
+    widths = [tx1 - tx0 for tx0, tx1 in tiles]
+    with_chroma = chroma_planes is not None
+    if with_chroma:
+        raise _slice2("the device chroma decision")
+    if tile_results is None:
+        if len(set(widths)) == 1:
+            wt = widths[0]
+            ys = np.stack([y_plane[:, tx0:tx1] for tx0, tx1 in tiles])
+            pk = eval_all_sizes_frames(
+                _to_device(pack_planes(ys), device), shapes, qp, bit_depth,
+                wt, h, len(tiles), lossless, lfnst, False,
+                isp).cpu().numpy()
+            tile_results = [unpack_results(pk[i], shapes, wt, h)
+                            for i in range(len(tiles))]
+        else:
+            tile_results = [
+                unpack_results(eval_all_sizes(
+                    _to_device(pack_planes(y_plane[:, tx0:tx1]), device),
+                    shapes, qp, bit_depth, tx1 - tx0, h, lossless, lfnst,
+                    False, isp).cpu().numpy(), shapes, tx1 - tx0, h)
+                for tx0, tx1 in tiles]
+    split_map, leaf_map, leaves = {}, {}, []
+    for (tx0, tx1), res in zip(tiles, tile_results):
+        sm, lm, lv = _offset_rdo_result(
+            _dp_backtrack(res, tx1 - tx0, h, qp, shapes, ctu_size, min_cu,
+                          mtt), tx0)
+        split_map.update(sm)
+        leaf_map.update(lm)
+        leaves.extend(lv)
+    return split_map, leaf_map, leaves
+
+
+# ---------------------------------------------------------------------------
+# Host half — copied unchanged from vvc/enc/rdo.py (pack layout, DPs)
+# ---------------------------------------------------------------------------
+
+
+# Split-signalling rates from the measured per-context table
+# (vvc_torch/cabac/rates.py SYNTAX_BITS, tools/measure_syntax_rates.py — the
+# estFracBits analog; replaces the r2 hand-waved flat constants).
+from vvc_torch.cabac.rates import SYNTAX_BITS as _SB
+
+# test hook: disable TT candidates in the DP (decode support unaffected)
+# for TT-on-vs-off A/B quality checks
+TT_IN_SEARCH = True
+
+# conservative margin (bits) on TT candidates: the DP's luma-only cost
+# cannot see that TT mid leaves forfeit the 4-way chroma decision (rect
+# CCLM not yet supported), ISP, and further splitting.  MEASURED by
+# tools/calibrate_tt_margin.py (TT-on-vs-off BD-rate sweep on
+# TT-friendly + neutral content); last run: margin 0/2 -> +0.06%
+# overuse on tt-friendly, 4 -> -0.03% / -1.56% — re-run the tool after
+# any quality-touching change (the r3 regression was a stale margin
+# after a deblocking tc bug shifted recon quality).
+TT_MARGIN_BITS = 4.0
+
+SPLIT_LEAF_BITS = _SB["SPLIT_CU_FLAG"][0]  # leaf codes split_cu_flag = 0
+SPLIT_BITS = _SB["SPLIT_CU_FLAG"][1]       # any split codes flag = 1
+QT_FLAG_BITS = _SB["SPLIT_QT_FLAG"][1]     # QT chosen while MTT competes
+MTT_FLAG_BITS = _SB["SPLIT_QT_FLAG"][0]    # MTT chosen while QT competes
+MTT_DIR_BITS = (_SB["MTT_SPLIT_VERT"][0] + _SB["MTT_SPLIT_VERT"][1]) / 2
+BT_FLAG_BITS = _SB["MTT_SPLIT_BINARY"][1]  # binary flag = 1 (BT)
+TT_FLAG_BITS = _SB["MTT_SPLIT_BINARY"][0]  # binary flag = 0 (TT)
+
+
+def _as_shapes(sizes):
+    """Normalize a candidate list: ints (squares) or (w, h) pairs."""
+    return tuple((s, s) if isinstance(s, int) else tuple(s) for s in sizes)
+
+
+def _tt_descriptors(sizes):
+    """TT middle-child cost planes needed beyond the aligned shape grids.
+
+    TT outer children land on the aligned (w, h/4) grids; only the middle
+    child (w, h/2) sits at the +h/4 half-offset, so each TT-capable parent
+    shape adds ONE offset plane: ('TH', w) = (w,16) blocks at y ≡ 8 mod 32
+    (stride 32), ('TV', h) mirrored.  Derived deterministically from the
+    shape list so pack/unpack order always agrees."""
+    from vvc_torch.model.partition import allowed_splits
+    shapes = _as_shapes(sizes)
+    if all(bw == bh for bw, bh in shapes):
+        # QT-only candidate list: _dp_backtrack never reads TT mid planes
+        return ()
+    out = []
+    for (bw, bh) in shapes:
+        if allowed_splits(bw, bh, False, True)[3]:       # can_tt_h
+            out.append(("TH", bw))
+        if allowed_splits(bw, bh, False, True)[4]:       # can_tt_v
+            out.append(("TV", bh))
+    return tuple(out)
+
+
+def unpack_results(vec: np.ndarray, sizes, w: int, h: int):
+    """Host-side inverse of _pack_results → {(bw, bh): (cost, mode, mts,
+    lfnst, chroma_mode, isp)} numpy arrays."""
+    out = {}
+    off = 0
+    keys = []
+    for (bw, bh) in _as_shapes(sizes):
+        keys.append(((bw, bh), h // bh, w // bw))
+    for desc in _tt_descriptors(sizes):
+        kind, s = desc
+        keys.append((desc, (h // 32, h // s)[kind == "TV"],
+                     (w // s, w // 32)[kind == "TV"]))
+    for key, ny, nx in keys:
+        if not (ny and nx):
+            continue
+        n = ny * nx
+        c = vec[off:off + n].view(np.float32).reshape(ny, nx); off += n
+        m = vec[off:off + n].reshape(ny, nx); off += n
+        t = vec[off:off + n].reshape(ny, nx); off += n
+        l = vec[off:off + n].reshape(ny, nx); off += n
+        cm = vec[off:off + n].reshape(ny, nx); off += n
+        isp = vec[off:off + n].reshape(ny, nx); off += n
+        out[key] = (c, m, t, l, cm, isp)
+    return out
+
+
+def _split_planes(vec, w, h, with_chroma, f=None):
+    """Unpack the single host→device input vector back into planes."""
+    shape_y = (h, w) if f is None else (f, h, w)
+    ny = int(np.prod(shape_y))
+    y = vec[:ny].reshape(shape_y)
+    if not with_chroma:
+        return y, None, None
+    shape_c = (h // 2, w // 2) if f is None else (f, h // 2, w // 2)
+    nc = int(np.prod(shape_c))
+    cb = vec[ny:ny + nc].reshape(shape_c)
+    cr = vec[ny + nc:ny + 2 * nc].reshape(shape_c)
+    return y, cb, cr
+
+
+def pack_planes(y, cb=None, cr=None):
+    """Host-side input packing (one device_put instead of three)."""
+    parts = [np.asarray(y, dtype=np.int32).ravel()]
+    if cb is not None:
+        parts += [np.asarray(cb, dtype=np.int32).ravel(),
+                  np.asarray(cr, dtype=np.int32).ravel()]
+    return np.concatenate(parts)
+
+
+def _candidate_sizes(ctu_size: int, min_cu: int):
+    """Leaf/TB candidate sizes: capped at 64 (MaxCUSize/MaxTbSize 64 —
+    CTU 128 nodes split implicitly before coding; reference: CommonDef
+    MAX_CU_SIZE vs MAX_TB_SIZEY)."""
+    sizes = []
+    s = min_cu
+    while s <= min(ctu_size, 64):
+        sizes.append(s)
+        s <<= 1
+    return sizes
+
+
+def _candidate_shapes(ctu_size: int, min_cu: int, mtt: bool):
+    if mtt:
+        from vvc_torch.model.partition import shape_lattice
+        return shape_lattice(min(ctu_size, 64), True)
+    return tuple((s, s) for s in _candidate_sizes(ctu_size, min_cu))
+
+
+def _offset_rdo_result(result, dx: int):
+    """Shift a per-tile (split_map, leaf_map, leaves) to frame coords."""
+    if dx == 0:
+        return result
+    sm, lm, leaves = result
+    for leaf in leaves:
+        leaf.x0 += dx
+    return ({(x + dx, y, bw, bh): v for (x, y, bw, bh), v in sm.items()},
+            {(x + dx, y, bw, bh): v for (x, y, bw, bh), v in lm.items()},
+            leaves)
+
+
+def _dp_backtrack(results, w, h, qp, sizes, ctu_size, min_cu, mtt=False):
+    if mtt:
+        return _dp_backtrack_mtt(results, w, h, qp, sizes, ctu_size, min_cu)
+    lam = rd_lambda(qp)
+    cost = {}
+    mode = {}
+    mts = {}
+    lfn = {}
+    cmode = {}
+    ispd = {}
+    szs = [bw for (bw, bh) in _as_shapes(sizes)]
+    for s in szs:
+        nx, ny = w // s, h // s
+        cost[s] = np.full((ny, nx), np.inf, dtype=np.float64)
+        mode[s] = np.zeros((ny, nx), dtype=np.int32)
+        mts[s] = np.zeros((ny, nx), dtype=np.int32)
+        lfn[s] = np.zeros((ny, nx), dtype=np.int32)
+        cmode[s] = np.zeros((ny, nx), dtype=np.int32)
+        ispd[s] = np.zeros((ny, nx), dtype=np.int32)
+        if (s, s) in results:
+            r = results[(s, s)]
+            cost[s][:] = r[0]
+            mode[s][:] = r[1]
+            mts[s][:] = r[2]
+            if len(r) > 3:
+                lfn[s][:] = r[3]
+            if len(r) > 4:
+                cmode[s][:] = r[4]
+            if len(r) > 5:
+                ispd[s][:] = r[5]
+
+    # bottom-up DP
+    best = {min_cu: cost[min_cu].copy()}
+    use_split = {}
+    for s in szs[1:] if szs[0] == min_cu else sorted(szs)[1:]:
+        half = s // 2
+        ny, nx = h // s, w // s
+        ch = best[half]
+        child_sum = (ch[0::2, 0::2][:ny, :nx] + ch[0::2, 1::2][:ny, :nx]
+                     + ch[1::2, 0::2][:ny, :nx] + ch[1::2, 1::2][:ny, :nx])
+        split_cost = child_sum + lam * SPLIT_BITS
+        leaf_cost = cost[s][:ny, :nx] + lam * SPLIT_LEAF_BITS  # flag = 0
+        use_split[s] = split_cost < leaf_cost
+        best[s] = np.where(use_split[s], split_cost, leaf_cost)
+
+    # backtrack in z-order over the CTU grid (implicit splits at borders)
+    split_map = {}
+    leaf_map = {}
+    leaves = []
+
+    def walk(x0, y0, s):
+        if x0 >= w or y0 >= h:
+            return
+        if s > 64:
+            # MaxCUSize 64: CTU-128 nodes split implicitly (no flag)
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+            return
+        inside = x0 + s <= w and y0 + s <= h
+        if not inside:
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+            return
+        if s > min_cu and use_split[s][y0 // s, x0 // s]:
+            split_map[(x0, y0, s, s)] = SPLIT_QT
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+        else:
+            if s > min_cu:
+                split_map[(x0, y0, s, s)] = SPLIT_NONE
+            leaf = Leaf(x0, y0, s, s, int(mode[s][y0 // s, x0 // s]),
+                        mts=int(mts[s][y0 // s, x0 // s]),
+                        lfnst=int(lfn[s][y0 // s, x0 // s]),
+                        isp=int(ispd[s][y0 // s, x0 // s]),
+                        chroma_mode=int(cmode[s][y0 // s, x0 // s]))
+            tr = _trace()
+            if tr.enabled:
+                tr.emit("BEST_MODE", x=x0, y=y0, w=s, h=s,
+                        mode=leaf.luma_mode,
+                        cost=float(cost[s][y0 // s, x0 // s]))
+            leaf_map[(x0, y0, s, s)] = leaf
+            leaves.append(leaf)
+
+    for cy in range(0, h, ctu_size):
+        for cx in range(0, w, ctu_size):
+            walk(cx, cy, ctu_size)
+    return split_map, leaf_map, leaves
+
+
+def _dp_backtrack_mtt(results, w, h, qp, shapes, ctu_size, min_cu):
+    """Shape-lattice DP over QT + BT + TT: two tables per shape — best_q
+    (QT still allowed) and best_m (inside MTT, the spec's no-QT-below-MTT
+    rule) — then a z-order backtrack emitting split codes (reference:
+    EncCu::xCheckModeSplit over canSplit results).
+
+    BT children of an aligned (w,h) grid land on the (w',h') grid.  TT
+    outer children also align (offsets 0 and 3h/4 on the (w,h/4) grid and
+    recurse through best_m); only the middle child sits at the +h/4
+    half-offset, for which eval_mid_plane supplies LEAF-only cost planes
+    (the middle child is not split further in the search — a bounded
+    approximation; syntax/decode support arbitrary TT subtrees)."""
+    from vvc_torch.model.partition import allowed_splits, SPLIT_TT_H, SPLIT_TT_V
+    lam = rd_lambda(qp)
+    shapes = _as_shapes(shapes)
+    data = {}
+    for sh in shapes:
+        bw, bh = sh
+        ny, nx = h // bh, w // bw
+        if not (ny and nx):
+            continue
+        if sh in results:
+            r = results[sh]
+            data[sh] = tuple(np.asarray(x) for x in r)
+        else:
+            data[sh] = (np.full((ny, nx), np.inf, np.float64),
+                        np.zeros((ny, nx), np.int32),
+                        np.zeros((ny, nx), np.int32),
+                        np.zeros((ny, nx), np.int32),
+                        np.zeros((ny, nx), np.int32),
+                        np.zeros((ny, nx), np.int32))
+
+    # process smallest-area first so children exist before parents
+    order = sorted(data.keys(), key=lambda sh: (sh[0] * sh[1], sh[0]))
+    best_m, choice_m = {}, {}
+    best_q, choice_q = {}, {}
+
+    def bt_costs(tbl, sh):
+        """(bt_h, bt_v) child-sum planes for shape sh from table tbl."""
+        bw, bh = sh
+        ny, nx = h // bh, w // bw
+        out = []
+        ch_h = tbl.get((bw, bh >> 1))
+        out.append(None if ch_h is None else
+                   ch_h[0::2, :][:ny, :nx] + ch_h[1::2, :][:ny, :nx])
+        ch_v = tbl.get((bw >> 1, bh))
+        out.append(None if ch_v is None else
+                   ch_v[:, 0::2][:ny, :nx] + ch_v[:, 1::2][:ny, :nx])
+        return out
+
+    def tt_costs(tbl, sh):
+        """(tt_h, tt_v) child-sum planes: outer children from the aligned
+        quarter-shape best_m table, middle child from the leaf-only
+        half-offset plane (results[('TH'|'TV', dim)])."""
+        if not TT_IN_SEARCH:
+            return [None, None]
+        bw, bh = sh
+        ny, nx = h // bh, w // bw
+        out = []
+        # the mid leaf pays its own split_cu_flag like every best_m leaf
+        q_h = tbl.get((bw, bh >> 2))
+        mid_h = results.get(("TH", bw)) if bh == 32 else None
+        if q_h is None or mid_h is None:
+            out.append(None)
+        else:
+            out.append(q_h[0::4, :][:ny, :nx] + q_h[3::4, :][:ny, :nx]
+                       + mid_h[0][:ny, :nx] + lam * SPLIT_LEAF_BITS)
+        q_v = tbl.get((bw >> 2, bh))
+        mid_v = results.get(("TV", bh)) if bw == 32 else None
+        if q_v is None or mid_v is None:
+            out.append(None)
+        else:
+            out.append(q_v[:, 0::4][:ny, :nx] + q_v[:, 3::4][:ny, :nx]
+                       + mid_v[0][:ny, :nx] + lam * SPLIT_LEAF_BITS)
+        return out
+
+    for sh in order:
+        bw, bh = sh
+        ny, nx = h // bh, w // bw
+        leaf = data[sh][0].astype(np.float64)
+        # ---- MTT-context table (QT barred) ----
+        _, mbth, mbtv, mtth, mttv = allowed_splits(bw, bh, False, True)
+        cands = [leaf + lam * SPLIT_LEAF_BITS]  # choice 0 = leaf (flag=0)
+        codes = [SPLIT_NONE]
+        sums = bt_costs(best_m, sh)
+        tsums = tt_costs(best_m, sh)
+        # direction flag coded only when both directions are available;
+        # binary (BT-vs-TT) flag only when both compete in that direction
+        dir_b = MTT_DIR_BITS if (mbth or mtth) and (mbtv or mttv) else 0.0
+        if mbth and sums[0] is not None:
+            cands.append(sums[0] + lam * (SPLIT_BITS + dir_b
+                                          + (BT_FLAG_BITS if mtth else 0)))
+            codes.append(SPLIT_BT_H)
+        if mbtv and sums[1] is not None:
+            cands.append(sums[1] + lam * (SPLIT_BITS + dir_b
+                                          + (BT_FLAG_BITS if mttv else 0)))
+            codes.append(SPLIT_BT_V)
+        if mtth and tsums[0] is not None:
+            cands.append(tsums[0] + lam * (SPLIT_BITS + dir_b
+                                           + TT_MARGIN_BITS
+                                           + (TT_FLAG_BITS if mbth else 0)))
+            codes.append(SPLIT_TT_H)
+        if mttv and tsums[1] is not None:
+            cands.append(tsums[1] + lam * (SPLIT_BITS + dir_b
+                                           + TT_MARGIN_BITS
+                                           + (TT_FLAG_BITS if mbtv else 0)))
+            codes.append(SPLIT_TT_V)
+        stack = np.stack(cands)
+        pick = np.argmin(stack, axis=0)
+        best_m[sh] = np.take_along_axis(stack, pick[None], axis=0)[0]
+        choice_m[sh] = np.asarray(codes, np.int32)[pick]
+        # ---- QT-allowed table (square shapes only) ----
+        if bw == bh:
+            qt_ok, qbth, qbtv, qtth, qttv = allowed_splits(bw, bh, True, True)
+            any_mtt = qbth or qbtv or qtth or qttv
+            # split_qt_flag coded only when QT and MTT both compete
+            qt_b = QT_FLAG_BITS if (qt_ok and any_mtt) else 0.0
+            mtt_b = MTT_FLAG_BITS if qt_ok else 0.0
+            qdir_b = (MTT_DIR_BITS
+                      if (qbth or qtth) and (qbtv or qttv) else 0.0)
+            cands = [leaf + lam * SPLIT_LEAF_BITS]
+            codes = [SPLIT_NONE]
+            if qt_ok and (bw >> 1, bh >> 1) in best_q:
+                cq = best_q[(bw >> 1, bh >> 1)]
+                qsum = (cq[0::2, 0::2][:ny, :nx] + cq[0::2, 1::2][:ny, :nx]
+                        + cq[1::2, 0::2][:ny, :nx] + cq[1::2, 1::2][:ny, :nx])
+                cands.append(qsum + lam * (SPLIT_BITS + qt_b))
+                codes.append(SPLIT_QT)
+            sums = bt_costs(best_m, sh)
+            tsums = tt_costs(best_m, sh)
+            if qbth and sums[0] is not None:
+                cands.append(sums[0] + lam * (SPLIT_BITS + mtt_b + qdir_b
+                                              + (BT_FLAG_BITS if qtth
+                                                 else 0)))
+                codes.append(SPLIT_BT_H)
+            if qbtv and sums[1] is not None:
+                cands.append(sums[1] + lam * (SPLIT_BITS + mtt_b + qdir_b
+                                              + (BT_FLAG_BITS if qttv
+                                                 else 0)))
+                codes.append(SPLIT_BT_V)
+            if qtth and tsums[0] is not None:
+                cands.append(tsums[0] + lam * (SPLIT_BITS + mtt_b + qdir_b
+                                               + TT_MARGIN_BITS
+                                               + (TT_FLAG_BITS if qbth
+                                                  else 0)))
+                codes.append(SPLIT_TT_H)
+            if qttv and tsums[1] is not None:
+                cands.append(tsums[1] + lam * (SPLIT_BITS + mtt_b + qdir_b
+                                               + TT_MARGIN_BITS
+                                               + (TT_FLAG_BITS if qbtv
+                                                  else 0)))
+                codes.append(SPLIT_TT_V)
+            stack = np.stack(cands)
+            pick = np.argmin(stack, axis=0)
+            best_q[sh] = np.take_along_axis(stack, pick[None], axis=0)[0]
+            choice_q[sh] = np.asarray(codes, np.int32)[pick]
+
+    split_map = {}
+    leaf_map = {}
+    leaves = []
+    from vvc_torch.model.partition import child_blocks
+
+    def walk(x0, y0, bw, bh, qt_allowed):
+        if x0 >= w or y0 >= h:
+            return
+        if bw > 64 or bh > 64:
+            # MaxCUSize 64: CTU-128 nodes split implicitly (no flag)
+            half = bw >> 1
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half, half, qt_allowed)
+            return
+        if not (x0 + bw <= w and y0 + bh <= h):
+            half = bw >> 1
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half, half, qt_allowed)
+            return
+        sh = (bw, bh)
+        tbl = choice_q if (qt_allowed and bw == bh) else choice_m
+        code = int(tbl[sh][y0 // bh, x0 // bw]) if sh in tbl else SPLIT_NONE
+        if any(allowed_splits(bw, bh, qt_allowed, True)):
+            split_map[(x0, y0, bw, bh)] = code
+        if code == SPLIT_NONE:
+            r = data[sh]
+            iy, ix = y0 // bh, x0 // bw
+            leaf = Leaf(x0, y0, bw, bh, int(r[1][iy, ix]),
+                        mts=int(r[2][iy, ix]), lfnst=int(r[3][iy, ix]),
+                        chroma_mode=int(r[4][iy, ix]),
+                        isp=int(r[5][iy, ix]) if len(r) > 5 else 0)
+            leaf_map[(x0, y0, bw, bh)] = leaf
+            leaves.append(leaf)
+            return
+        kids = child_blocks(x0, y0, bw, bh, code)
+        if code in (SPLIT_TT_H, SPLIT_TT_V):
+            # middle child: leaf directly from the half-offset plane (its
+            # position is off the aligned grids)
+            cx, cy, cw, ch = kids[1]
+            r = results[("TH", bw) if code == SPLIT_TT_H else ("TV", bh)]
+            iy = cy // 32 if code == SPLIT_TT_H else cy // ch
+            ix = cx // cw if code == SPLIT_TT_H else cx // 32
+            leaf = Leaf(cx, cy, cw, ch, int(r[1][iy, ix]),
+                        mts=int(r[2][iy, ix]), lfnst=int(r[3][iy, ix]))
+            walk(*kids[0], False)
+            if any(allowed_splits(cw, ch, False, True)):
+                split_map[(cx, cy, cw, ch)] = SPLIT_NONE
+            leaf_map[(cx, cy, cw, ch)] = leaf
+            leaves.append(leaf)
+            walk(*kids[2], False)
+            return
+        for (cx, cy, cw, ch) in kids:
+            walk(cx, cy, cw, ch, code == SPLIT_QT and qt_allowed)
+
+    for cy in range(0, h, ctu_size):
+        for cx in range(0, w, ctu_size):
+            walk(cx, cy, ctu_size, ctu_size, True)
+    return split_map, leaf_map, leaves

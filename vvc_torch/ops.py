@@ -1,0 +1,163 @@
+"""Device resolution, CUDA kernel build/load and per-kernel launch counts.
+
+Kernels are CUDA C++ for Hopper (`vvc_torch/csrc/*.cu`), each with a plain
+C entry point.  `build()` compiles every source with its own `nvcc`
+process, all started together, into `vvc_torch/_build/` (a shared library
+per source, named by a hash of its text), and `lib(name)` loads one with
+ctypes.  The build happens at first use and reads only the package's own
+sources.
+
+Each kernel wrapper (in `vvc_torch.kernels` / `vvc_torch.enc.rdo`):
+  * on a CPU tensor runs the kernel's plain PyTorch version;
+  * on a CUDA tensor launches the kernel, or raises — unless the caller is
+    inside `plain()`, the one explicit way to run the plain version on the
+    card (used to hold a kernel against its plain version);
+  * adds one to `COUNTS[name]` where it launches the kernel, and nowhere
+    else.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(_DIR, "_build")
+
+# kernel name -> CUDA source (one plain-C shared library each)
+SOURCES = {
+    "ref_lines": "ref_lines.cu",
+    "intra_pred_all": "intra_pred.cu",
+    "satd": "satd.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+COUNTS = {name: 0 for name in SOURCES}
+
+_plain = contextvars.ContextVar("vvc_torch_plain", default=False)
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means CUDA; raises when CUDA is absent.  Only an explicit
+    ``"cpu"`` runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("vvc_torch: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    return dev
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+@contextlib.contextmanager
+def plain():
+    """Run the plain PyTorch versions on CUDA tensors inside this block."""
+    token = _plain.set(True)
+    try:
+        yield
+    finally:
+        _plain.reset(token)
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True when the wrapper must launch its CUDA kernel for tensor `t`."""
+    return t.is_cuda and not _plain.get()
+
+
+def _so_path(name: str) -> str:
+    src = os.path.join(CSRC, SOURCES[name])
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise FileNotFoundError("vvc_torch: nvcc not found (CUDA toolkit "
+                                "needed to build the kernels)")
+    return exe
+
+
+def build(verbose: bool = False) -> float:
+    """Compile every kernel source not yet built; returns seconds spent.
+    One nvcc process per source, all started together."""
+    with _lock:
+        t0 = time.perf_counter()
+        todo = [n for n in SOURCES if not os.path.exists(_so_path(n))]
+        if not todo:
+            return 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name in todo:
+            out = _so_path(name)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+                   os.path.join(CSRC, SOURCES[name])]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, out, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+            if verbose:
+                print(f"[build] {name}: {log.strip()}")
+        if failed:
+            raise RuntimeError("vvc_torch: kernel build failed\n"
+                               + "\n".join(failed))
+        return time.perf_counter() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """Load (building first if needed) the shared library of kernel `name`."""
+    if name not in _libs:
+        build()
+        with _lock:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(_so_path(name))
+    return _libs[name]
+
+
+def launched(name: str, err: int) -> None:
+    """Post-launch bookkeeping: raise on a launch error, else count it."""
+    if err != 0:
+        raise RuntimeError(f"vvc_torch: kernel {name} launch failed "
+                           f"(cudaError {err})")
+    COUNTS[name] += 1
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_i32(name: str, *tensors: torch.Tensor) -> None:
+    """Validate kernel inputs: CUDA, int32, contiguous, one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not (t.is_cuda and t.device == dev):
+            raise ValueError(f"{name}: tensors must be on one CUDA device")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

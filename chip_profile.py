@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the port's main path spends its time on one NVIDIA GPU.
+
+    python3 chip_profile.py [--trace profile_trace.json]
+
+Encodes the main path of `chip_smoke.py` — two synthetic 1920×1080 frames,
+`vvc_torch.enc.encoder.encode_sequence`, lossless All-Intra, QP 32 — three
+times, after a small warm-up encode:
+
+  pooled-profiled  all frames in one call (the frame pool of the AI
+                   pipeline, one host thread per frame) under
+                   torch.profiler with CPU and CUDA activities.  The
+                   device's busy time is the union of the trace's kernel,
+                   memcpy and memset intervals; its idle share is
+                   1 - busy / wall.  The trace is written to --trace.
+  serial           each frame in a call of its own, one after another, so
+                   one host thread works at a time.
+  pooled           all frames in one call again, without the profiler.
+
+One JSON line per run gives wall seconds, frames/s and the `utils.perf`
+phase totals (thread-seconds).  serial against the two pooled runs says
+whether the pool's threads overlap the host work; pooled against
+pooled-profiled says what the profiler costs.  Needs one CUDA card and
+exits non-zero without one, or when the trace holds no device activity.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+W, H = 1920, 1080
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_seconds(trace_path: str) -> tuple[float, int]:
+    """Union of the device intervals of a chrome trace: (seconds, count)."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy * 1e-6, len(spans)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default="profile_trace.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vvc_torch import ops, packer
+    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.io.synth import synth_frame
+    from vvc_torch.utils import perf
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    ops.build()
+    packer.lib()
+    encode_sequence([synth_frame(416, 240, 0)], qp=32, lossless=True)
+    frames = [synth_frame(W, H, t) for t in range(2)]
+
+    def run(name, calls):
+        perf.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fs in calls:
+            encode_sequence(fs, qp=32, lossless=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"run": name, "frames": len(frames),
+                "size": f"{W}x{H}", "wall_s": wall,
+                "frames_per_s": len(frames) / wall,
+                "phases": perf.report(), "card": card}
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rec = run("pooled-profiled", [frames])
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    busy, n_dev = busy_seconds(args.trace)
+    if n_dev == 0:
+        raise RuntimeError("chip_profile: the trace holds no device "
+                           "activity; idle share not measured")
+    rec.update(device_busy_s=busy, device_events=n_dev,
+               device_idle_share=1.0 - busy / rec["wall_s"])
+    print(json.dumps(rec), flush=True)
+    top = prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=12)
+    print(top, flush=True)
+    print(json.dumps(run("serial", [[f] for f in frames])), flush=True)
+    print(json.dumps(run("pooled", [frames])), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -70,6 +70,23 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ref_lines_read_bytes(h: int, w: int, xs, ys, size: int,
+                         sector: int = 32) -> int:
+    """Bytes of the int32 plane that the reference lines of blocks (xs, ys)
+    must read, counted in the card's 32-B sectors: the distinct sectors
+    holding row y0-1 (2S+1 samples, where y0 > 0) and column x0-1 (2S
+    samples, where x0 > 0) of each block, frame-edge clamps applied."""
+    xs, ys = xs.long(), ys.long()
+    k = torch.arange(2 * size, device=xs.device)
+    lx = (xs - 1).clamp(0, w - 1)
+    ty = (ys - 1).clamp(0, h - 1)
+    left = (ys[:, None] + k).clamp(0, h - 1) * w + lx[:, None]
+    top = ty[:, None] * w + (xs[:, None] + k).clamp(0, w - 1)
+    idx = torch.cat([left[xs > 0].reshape(-1), top[ys > 0].reshape(-1),
+                     (ty * w + lx)[ys > 0]])
+    return int(torch.unique(idx * 4 // sector).numel()) * sector
+
+
 def grid_xy(size: int, w: int, h: int, dev):
     ny, nx = h // size, w // size
     ys = (torch.arange(ny, dtype=torch.int32, device=dev) * size
@@ -175,7 +192,8 @@ def main() -> int:
             with ops.plain():
                 p_ms = cuda_ms(f_ref)
             add_time("ref_lines", k_ms, p_ms,
-                     H_HD * W_HD * 4 + n * 8 + n * (4 * s + 3) * 4,
+                     ref_lines_read_bytes(H_HD, W_HD, xs, ys, s) + n * 8
+                     + n * (4 * s + 3) * 4,
                      10 * n * (4 * s + 3))
             f_int = lambda: intra.predict_all_modes_batch(refs, s, bd)
             k_ms = cuda_ms(f_int)

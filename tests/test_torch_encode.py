@@ -42,6 +42,8 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
                                       ({"lossless": True, "mode": "ra"},
                                        "inter slice"),
                                       ({"lossless": True, "target_kbps": 500},
+                                       "slice 2"),
+                                      ({"lossless": True, "wpp": True},
                                        "slice 2")])
 def test_options_of_later_slices_raise(kw, match):
     from vvc_torch.enc.encoder import encode_sequence as port_encode

@@ -1,6 +1,6 @@
 """The tables the port carries across from vvc — its "weights" — equal
 vvc's: intra angular/PDPC tables and filters, transform matrices, scans
-and quant scales, MIP/LFNST matrices, CABAC context init and measured
+and quant scales, MIP matrices, CABAC context init and measured
 rates, the RDO mode bits, and the native CABAC core's source.
 Tolerance: exact equality."""
 import os
@@ -15,7 +15,6 @@ import vvc.cabac.residual as ref_residual
 import vvc.enc.rdo as ref_rdo
 import vvc.kernels.intra as ref_intra
 import vvc.rom.intra_filters as ref_filt
-import vvc.rom.lfnst_mats as ref_lfnst
 import vvc.rom.mip_mats as ref_mip
 import vvc.rom.transform_mats as ref_tm
 import vvc_torch.cabac.ctx as port_ctx
@@ -23,7 +22,6 @@ import vvc_torch.cabac.rates as port_rates
 import vvc_torch.cabac.rates_ctx as port_rates_ctx
 import vvc_torch.cabac.residual as port_residual
 import vvc_torch.rom.intra_filters as port_filt
-import vvc_torch.rom.lfnst_mats as port_lfnst
 import vvc_torch.rom.mip_mats as port_mip
 import vvc_torch.rom.transform_mats as port_tm
 
@@ -80,7 +78,6 @@ def test_transform_tables_equal():
 def test_mip_lfnst_matrices_equal():
     _eq(port_mip.mip_weights(), ref_mip.mip_weights())
     _eq(port_mip.K_MIP_MODES, ref_mip.K_MIP_MODES)
-    _eq(port_lfnst.lfnst_kernels(), ref_lfnst.lfnst_kernels())
 
 
 def test_cabac_context_tables_equal():

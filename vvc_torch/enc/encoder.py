@@ -35,7 +35,6 @@ from vvc_torch.io.nal import NalUnit, write_annexb
 from vvc_torch.io.yuv import Frame, psnr
 from vvc_torch.hls.ps import SPS, PPS, SliceHeader
 from vvc_torch.hls.write import write_sps, write_pps, write_slice_header
-from vvc_torch.cabac.engine import BinEncoder
 from vvc_torch.packer import native as native_packer
 from vvc_torch.cabac.ctx import SliceContexts
 from vvc_torch.cabac.cu_syntax import TreeWriter
@@ -112,61 +111,6 @@ class Encoder:
                                dep_quant=sps.dep_quant,
                                pred_cache=preds if preds else None)
 
-    def _entropy_rows_wpp(self, split_map, leaf_map, qp, sao_params,
-                          slice_type=SliceType.I, n_ref=(0, 0),
-                          col_info=(None, 0, ((), ()))):
-        """WPP (sps_entropy_coding_sync, SURVEY.md §2.7 P-2): one CABAC
-        substream per CTU row; row r+1's contexts initialize from a
-        snapshot of row r's state taken after its first CTU — the 1-CTU
-        stagger that lets rows encode/decode in parallel.  Spatial
-        prediction still crosses rows (unlike tiles), so syntax state and
-        reconstruction stay frame-wide."""
-        from vvc_torch.cabac.sao_syntax import write_sao_params
-        from vvc_torch.model.motion import MotionState
-        sps = self.sps
-        state = CodingState(sps.width, sps.height)   # shared across rows
-        mstate = MotionState(sps.width, sps.height)
-        inherit = None
-        substreams = []
-        for cy in range(0, sps.height, sps.ctu_size):
-            ctxs = SliceContexts(qp)
-            if inherit is not None:
-                ctxs.states[:] = inherit
-            enc = (native_packer.NativeBinEncoder(ctxs)
-                   if native_packer.available() else BinEncoder())
-            writer = TreeWriter(enc, ctxs, state, sps.width, sps.height,
-                                split_map, leaf_map, sps.ctu_size,
-                                sps.min_cu_size, mts_enabled=sps.mts_intra,
-                                cclm_enabled=sps.cclm, mip_enabled=sps.mip,
-                            lfnst_enabled=sps.lfnst, isp_enabled=sps.isp,
-                            mtt_enabled=sps.max_mtt_depth_intra > 0,
-                            affine_enabled=sps.affine,
-                            lossless_enabled=sps.lossless,
-                            mmvd_enabled=sps.mmvd,
-                            ciip_enabled=sps.ciip,
-                            gpm_enabled=sps.gpm,
-                            amvr_enabled=sps.amvr,
-                            smvd_enabled=sps.smvd,
-                            bcw_enabled=sps.bcw,
-                                slice_type=int(slice_type), mstate=mstate,
-                                n_ref=n_ref, col=col_info[0],
-                                cur_poc=col_info[1], ref_pocs=col_info[2])
-            first = True
-            for cx in range(0, sps.width, sps.ctu_size):
-                if sao_params is not None:
-                    cs = self.sps.ctu_size
-                    write_sao_params(
-                        enc, ctxs, sao_params[(cx, cy)],
-                        left=sao_params.get((cx - cs, cy)),
-                        up=sao_params.get((cx, cy - cs)))
-                writer.write_ctu(cx, cy)
-                if first:
-                    inherit = ctxs.states.copy()
-                    first = False
-            enc.encode_bin_trm(1)
-            substreams.append(enc.finish())
-        return substreams
-
     def _entropy_tile(self, split_map, leaf_map, tx0, tx1, qp, sao_params,
                       slice_type=SliceType.I, n_ref=(0, 0),
                       col_info=(None, 0, ((), ())), ty0=0, ty1=None):
@@ -174,8 +118,7 @@ class Encoder:
         from vvc_torch.model.motion import MotionState
         sps = self.sps
         ctxs = SliceContexts(qp)
-        enc = (native_packer.NativeBinEncoder(ctxs)
-               if native_packer.available() else BinEncoder())
+        enc = native_packer.NativeBinEncoder(ctxs)
         state = CodingState(sps.width, sps.height)
         writer = TreeWriter(enc, ctxs, state, min(tx1, sps.width), sps.height,
                             split_map, leaf_map, sps.ctu_size,
@@ -224,6 +167,9 @@ class Encoder:
         if not sps.lossless:
             raise _not_in_slice("lossy coding and the loop filters",
                                 "slice 2 (lossy All-Intra)")
+        if pps.wpp:
+            raise _not_in_slice("WPP row substreams",
+                                "slice 2 (lossy All-Intra)")
         qp = pps.init_qp if qp is None else qp
         bd = sps.bit_depth
 
@@ -268,25 +214,19 @@ class Encoder:
                 for i in range(len(tiles)):
                     recon_tile(i)
 
-        # phase 2: entropy — WPP row substreams or per-tile (parallel);
-        # lossless has no loop filters and no SAO parameters
-        if pps.wpp:
-            assert len(tiles) == 1, "tiles+WPP combination lands later"
-            substreams = self._entropy_rows_wpp(split_map, leaf_map, qp, None)
-        else:
-            def entropy_tile(i):
-                tx0, tx1, ty0, ty1 = tiles[i]
-                return self._entropy_tile(split_map, leaf_map, tx0, tx1, qp,
-                                          None, ty0=ty0, ty1=ty1)
+        # phase 2: entropy per tile (parallel); lossless has no loop
+        # filters and no SAO parameters
+        def entropy_tile(i):
+            tx0, tx1, ty0, ty1 = tiles[i]
+            return self._entropy_tile(split_map, leaf_map, tx0, tx1, qp,
+                                      None, ty0=ty0, ty1=ty1)
 
-            with perf.phase("entropy"):
-                if self.parallel_tiles and len(tiles) > 1:
-                    with concurrent.futures.ThreadPoolExecutor(
-                            len(tiles)) as ex:
-                        substreams = list(ex.map(entropy_tile,
-                                                 range(len(tiles))))
-                else:
-                    substreams = [entropy_tile(i) for i in range(len(tiles))]
+        with perf.phase("entropy"):
+            if self.parallel_tiles and len(tiles) > 1:
+                with concurrent.futures.ThreadPoolExecutor(len(tiles)) as ex:
+                    substreams = list(ex.map(entropy_tile, range(len(tiles))))
+            else:
+                substreams = [entropy_tile(i) for i in range(len(tiles))]
 
         sh = SliceHeader(pps.pps_id, int(slice_type), poc, qp,
                          retained_deltas=tuple(poc - p
@@ -343,6 +283,9 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         raise _not_in_slice(f"mode={mode!r}", "the inter slice")
     if not lossless:
         raise _not_in_slice("lossless=False", "slice 2 (lossy All-Intra)")
+    if wpp:
+        raise _not_in_slice("WPP row substreams",
+                            "slice 2 (lossy All-Intra)")
     if target_kbps > 0:
         raise _not_in_slice("rate control", "slice 2 (lossy All-Intra)")
     if _precomputed_rdo is not None:

@@ -16,10 +16,6 @@ import numpy as np
 from vvc_torch.packer import lib
 
 
-def available() -> bool:
-    return lib() is not None
-
-
 def _ptr(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.c_void_p)
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--trace profile_trace.json]
+    python3 chip_profile.py [--trace profile_trace.json] [--lossy]
 
-Encodes the main path of `chip_smoke.py` — two synthetic 1920×1080 frames,
-`vvc_torch.enc.encoder.encode_sequence`, lossless All-Intra, QP 32 — three
-times, after a small warm-up encode:
+Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
+QP 32 — after a small warm-up encode.  Without --lossy it is lossless
+All-Intra through `vvc_torch.enc.encoder.encode_sequence`, three times:
 
   pooled-profiled  all frames in one call (the frame pool of the AI
                    pipeline, one host thread per frame) under
@@ -20,8 +20,14 @@ times, after a small warm-up encode:
 One JSON line per run gives wall seconds, frames/s and the `utils.perf`
 phase totals (thread-seconds).  serial against the two pooled runs says
 whether the pool's threads overlap the host work; pooled against
-pooled-profiled says what the profiler costs.  Needs one CUDA card and
-exits non-zero without one, or when the trace holds no device activity.
+pooled-profiled says what the profiler costs.
+
+With --lossy it is lossy All-Intra with MTS, MIP and deblocking through
+`Encoder.encode_frame`, one frame after the other, twice: profiled (the
+device's busy time and idle share as above) and unprofiled.
+
+Needs one CUDA card and exits non-zero without one, or when the trace
+holds no device activity.
 """
 from __future__ import annotations
 
@@ -57,13 +63,16 @@ def busy_seconds(trace_path: str) -> tuple[float, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default="profile_trace.json")
+    ap.add_argument("--lossy", action="store_true",
+                    help="profile the lossy All-Intra path (encode_frame)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vvc_torch import ops, packer
-    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.enc.encoder import Encoder, encode_sequence
+    from vvc_torch.hls.ps import PPS, SPS
     from vvc_torch.io.synth import synth_frame
     from vvc_torch.utils import perf
 
@@ -74,18 +83,29 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     ops.build()
     packer.lib()
-    encode_sequence([synth_frame(416, 240, 0)], qp=32, lossless=True)
     frames = [synth_frame(W, H, t) for t in range(2)]
+    lossy = dict(deblocking=True, mts_intra=True, mip=True)
+    if args.lossy:
+        Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
+                ).encode_frame(synth_frame(416, 240, 0), 0)
+        enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
+    else:
+        encode_sequence([synth_frame(416, 240, 0)], qp=32, lossless=True)
 
     def run(name, calls):
         perf.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for fs in calls:
-            encode_sequence(fs, qp=32, lossless=True)
+            if args.lossy:
+                for poc, f in enumerate(fs):
+                    enc.encode_frame(f, poc)
+            else:
+                encode_sequence(fs, qp=32, lossless=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return {"run": name, "frames": len(frames),
+        return {"run": name, "path": "lossy" if args.lossy else "lossless",
+                "frames": len(frames),
                 "size": f"{W}x{H}", "wall_s": wall,
                 "frames_per_s": len(frames) / wall,
                 "phases": perf.report(), "card": card}
@@ -93,7 +113,8 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        rec = run("pooled-profiled", [frames])
+        rec = run("serial-profiled" if args.lossy else "pooled-profiled",
+                  [frames])
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
     busy, n_dev = busy_seconds(args.trace)
@@ -106,6 +127,9 @@ def main() -> int:
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     print(top, flush=True)
+    if args.lossy:
+        print(json.dumps(run("serial", [frames])), flush=True)
+        return 0
     print(json.dumps(run("serial", [[f] for f in frames])), flush=True)
     print(json.dumps(run("pooled", [frames])), flush=True)
     return 0

@@ -5,25 +5,31 @@
 
 Builds the port's CUDA kernels from vvc_torch/csrc with nvcc (sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's main path — `vvc_torch.enc.encoder.encode_sequence` on two 1920×1080
-frames, lossless All-Intra, QP 32 — and checks what comes out:
+port's two main paths at 1920×1080, QP 32 — lossless All-Intra through
+`vvc_torch.enc.encoder.encode_sequence` (slice 1, two frames) and lossy
+All-Intra with MTS, MIP and deblocking through `Encoder.encode_frame`
+(slice 2a, two frames) — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each kernel against its plain version on the card (exact equality),
-     at the main path's shapes, with CUDA-event times;
-  4. the 1080p search vector from the kernels against the plain path's;
-  5. the main path: recon equals the source in all planes, the stream
-     starts with SPS and PPS, every kernel's launch count moved;
-  6. at 416×240, the kernel path's stream byte-equal to the plain path's,
-     single-tile and with 2 tile columns.
+  3. each of the seven kernels against its plain version on the card
+     (exact equality; the quant_rate kernel's float rates bit for bit),
+     at the main paths' shapes, with CUDA-event times per 1080p frame;
+  4. the 1080p search vectors, lossless and lossy, from the kernels
+     against the plain path's;
+  5. the lossless main path: recon equals the source in all planes, the
+     stream starts with SPS and PPS, its three kernels' counts moved;
+  6. the lossy main path: every one of the seven kernels launched the
+     expected number of times, PSNR-Y and bytes in range;
+  7. at 416×240, the kernel path's streams byte-equal to the plain path's,
+     lossless and lossy, single-tile and with 2 tile columns.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX or of
 the JAX package `vvc`.  TF32 is switched off for matmuls and convolutions
-(nothing on the path uses them; the SATD yardstick's float32 matmul must
-be exact).
+(nothing on the path uses them; the SATD yardstick's float32 matmul and
+the transforms' float64 yardstick must be exact).
 """
 from __future__ import annotations
 
@@ -42,6 +48,13 @@ HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 W_HD, H_HD = 1920, 1080
 SIZES = (8, 16, 32, 64)
+MTS_SIZES = (8, 16, 32)      # stage B (MTS) and MIP sizes
+# launches per 1080p frame on the lossy main path: stage A at 4 sizes +
+# stage B's 4 MTS pairs at 3 sizes; SATD once per size + once for MIP
+LOSSY_LAUNCHES = {"ref_lines": 4, "intra_pred_all": 4, "satd": 7,
+                  "transform_fwd": 16, "transform_inv": 16,
+                  "quant_rate": 16, "mip_pred_all": 3}
+LOSSLESS_KERNELS = ("ref_lines", "intra_pred_all", "satd")
 
 
 def check(cond, msg: str) -> None:
@@ -103,10 +116,12 @@ def main() -> int:
     from vvc_torch import ops
     from vvc_torch import packer
     from vvc_torch.enc import rdo
-    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.enc.encoder import Encoder, encode_sequence
+    from vvc_torch.hls.ps import PPS, SPS
     from vvc_torch.io.nal import read_annexb
     from vvc_torch.io.synth import synth_frame
-    from vvc_torch.kernels import intra, satd
+    from vvc_torch.kernels import intra, mip, quant, satd, transform
+    from vvc_torch.packer import native_recon
     from vvc_torch.utils import perf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,9 +143,11 @@ def main() -> int:
     build_s = ops.build(verbose=True)
     t1 = time.perf_counter()
     packer.lib()
+    t2 = time.perf_counter()
+    native_recon.available()
     print(f"[2] kernels built in {build_s:.1f} s; CABAC core "
-          f"{time.perf_counter() - t1:.1f} s; total {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"{t2 - t1:.1f} s; recon core {time.perf_counter() - t2:.1f} s; "
+          f"total {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(2026)
     stats = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -237,37 +254,139 @@ def main() -> int:
         with ops.plain():
             want = satd.satd_batch(pred, orig)
         compare("satd", got, want)
+        del pred, orig, got, want
+
+    # the lossy kernels at the main path's shapes: stage A runs DCT2 on the
+    # top-3 shortlist ([3N,S,S]) at every size, stage B the 4 other MTS
+    # pairs on the winners ([N,S,S]) at 8..32; MIP predicts [N,9,S,S]
+    def f64_sandwich(fwd, x, th, tv, bd):
+        """Yardstick: the same integer transform as float64 batched
+        matmuls with the same shifts (exact: every value < 2^53)."""
+        x = x.to(torch.float64)
+        if fwd:
+            s1, s2 = int(np.log2(x.shape[-1])) + bd - 9, int(np.log2(
+                x.shape[-1])) + 6
+            t = torch.floor((x @ th.T + 2.0 ** (s1 - 1)) / 2.0 ** s1)
+            return torch.floor((tv @ t + 2.0 ** (s2 - 1)) / 2.0 ** s2
+                               ).clamp(-32768, 32767)
+        s2 = 20 - bd
+        t = torch.floor((tv.T @ x + 64.0) / 128.0).clamp(-32768, 32767)
+        return torch.floor((t @ th + 2.0 ** (s2 - 1)) / 2.0 ** s2
+                           ).clamp(-32768, 32767)
+
+    for bd in (8, 10):
+        for s in SIZES:
+            n = (H_HD // s) * (W_HD // s)
+            lim = 1 << bd
+            resi_a = torch.from_numpy(rng.integers(
+                -lim + 1, lim, size=(3 * n, s, s)).astype(np.int32) >> 2
+                ).to(dev)
+            passes = [(0, resi_a)] + ([(mi, resi_a[:n]) for mi in
+                                       range(1, 5)] if s in MTS_SIZES else [])
+            for mi, x in passes:
+                th, tv = transform.MTS_TR[mi]
+                m = x.shape[0]
+                ck = transform.fwd_transform_batch(x, bd, th, tv)
+                with ops.plain():
+                    cp = transform.fwd_transform_batch(x, bd, th, tv)
+                compare("transform_fwd", ck, cp)
+                lk, rk, dk = quant.quant_rate(ck, 32, bd)
+                with ops.plain():
+                    lp_, rp, dp = quant.quant_rate(ck, 32, bd)
+                compare("quant_rate", lk, lp_)
+                compare("quant_rate", dk, dp)
+                compare("quant_rate", rk.view(torch.int32),
+                        rp.view(torch.int32))
+                ik = transform.inv_transform_batch(dk, bd, th, tv)
+                with ops.plain():
+                    ip = transform.inv_transform_batch(dk, bd, th, tv)
+                compare("transform_inv", ik, ip)
+                del cp, lp_, rp, dp, ip
+                if bd != 8:
+                    continue
+                thm = transform._matrix(th, s, str(dev)).to(torch.float64)
+                tvm = transform._matrix(tv, s, str(dev)).to(torch.float64)
+                mat_bytes = 2 * s * s * 4
+                for name, fn, fwd, inp in (
+                        ("transform_fwd", transform.fwd_transform_batch,
+                         True, x),
+                        ("transform_inv", transform.inv_transform_batch,
+                         False, dk)):
+                    f = lambda: fn(inp, bd, th, tv)
+                    k_ms = cuda_ms(f)
+                    with ops.plain():
+                        p_ms = cuda_ms(f, iters=3, warmup=1)
+                    add_time(name, k_ms, p_ms, 2 * m * s * s * 4 + mat_bytes,
+                             m * s * s * 2 * s * 2)
+                    lib = lambda: f64_sandwich(fwd, inp, thm, tvm, bd)
+                    compare(name, lib().to(torch.int32),
+                            ck if fwd else ik)
+                    stats[name]["library_ms"] = (
+                        stats[name]["library_ms"] or 0.0) + cuda_ms(
+                            lib, iters=3, warmup=1)
+                f = lambda: quant.quant_rate(ck, 32, bd)
+                k_ms = cuda_ms(f)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=2, warmup=1)
+                add_time("quant_rate", k_ms, p_ms,
+                         3 * m * s * s * 4 + m * 4 + 32768 * 4 + 40,
+                         16 * m * s * s)
+                del ck, lk, rk, dk, ik
+            del resi_a, passes
+            if s not in MTS_SIZES:
+                continue
+            refs = torch.from_numpy(rng.integers(
+                0, 1 << bd, size=(n, 4 * s + 3)).astype(np.int32)).to(dev)
+            refs[:64] = refs[:64, :1]                     # flat lines
+            mk = mip.mip_predict_all_batch(refs, s, bd)
+            with ops.plain():
+                mp = mip.mip_predict_all_batch(refs, s, bd)
+            compare("mip_pred_all", mk, mp)
+            del mk, mp
+            if bd == 8:
+                f = lambda: mip.mip_predict_all_batch(refs, s, bd)
+                k_ms = cuda_ms(f)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=3, warmup=1)
+                add_time("mip_pred_all", k_ms, p_ms,
+                         n * (4 * s + 3) * 4 + n * 9 * s * s * 4
+                         + 9 * 64 * 8 * 4,
+                         n * (9 * 64 * 16 + 9 * s * s * 8))
+            del refs
     torch.cuda.synchronize()
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
-        print(f"[3] {name}: exact vs plain; per 1080p frame (sizes "
-              f"{SIZES}): kernel {st['ms']:.3f} ms, plain "
+        print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
+              f"launches): kernel {st['ms']:.3f} ms, plain "
               f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms "
               f"({st['bound_by']}), library {st['library_ms']}", flush=True)
 
-    # 4. the 1080p search vector: kernels against the plain path
+    # 4. the 1080p search vectors: kernels against the plain path
     frames = [synth_frame(W_HD, H_HD, t) for t in range(2)]
     shapes = rdo._candidate_shapes(64, 8, False)
     vec = torch.from_numpy(rdo.pack_planes(frames[0].y)).to(dev)
-    got = rdo.eval_all_sizes(vec, shapes, 32, 8, W_HD, H_HD, True, False)
-    with ops.plain():
-        want = rdo.eval_all_sizes(vec, shapes, 32, 8, W_HD, H_HD, True, False)
-    check(torch.equal(got, want), "1080p search vector: kernels != plain")
-    search = lambda: rdo.eval_all_sizes(vec, shapes, 32, 8, W_HD, H_HD,
-                                        True, False)
-    search_ms = cuda_ms(search, iters=5)
-    with ops.plain():
-        search_plain_ms = cuda_ms(search, iters=2, warmup=1)
-    print(f"[4] 1080p search vector ({got.numel()} int32) bit-equal to the "
-          f"plain path; one frame's search {search_ms:.3f} ms (plain "
-          f"{search_plain_ms:.3f} ms)", flush=True)
+    for lossless in (True, False):
+        search = lambda: rdo.eval_all_sizes(vec, shapes, 32, 8, W_HD, H_HD,
+                                            lossless, False)
+        got = search()
+        with ops.plain():
+            want = search()
+        check(torch.equal(got, want),
+              f"1080p search vector (lossless={lossless}): kernels != plain")
+        search_ms = cuda_ms(search, iters=3, warmup=1)
+        with ops.plain():
+            search_plain_ms = cuda_ms(search, iters=1, warmup=0)
+        print(f"[4] 1080p {'lossless' if lossless else 'lossy'} search "
+              f"vector ({got.numel()} int32) bit-equal to the plain path; "
+              f"one frame's search {search_ms:.3f} ms (plain "
+              f"{search_plain_ms:.3f} ms)", flush=True)
 
-    # 5. the main path, counted
+    # 5. the lossless main path (slice 1), two frames, counted
     perf.reset()
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
-    bs, recons, st5 = encode_sequence(frames, qp=32, lossless=True)
+    bs, recons, _ = encode_sequence(frames, qp=32, lossless=True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(ops.COUNTS)
@@ -277,35 +396,79 @@ def main() -> int:
     types = [n.nal_type for n in read_annexb(bs)]
     check(types[:2] == [15, 16], f"stream does not start with SPS, PPS: "
           f"{types[:4]}")
-    for name, c in launches.items():
-        check(c == len(SIZES) * len(frames),
-              f"{name}: {c} launches on the main path, expected "
-              f"{len(SIZES) * len(frames)}")
-    print(f"[5] main path: 2 frames 1920x1080 lossless AI QP32 on {kind}: "
+    for name in ops.COUNTS:
+        want_n = len(SIZES) * len(frames) if name in LOSSLESS_KERNELS else 0
+        check(launches[name] == want_n,
+              f"{name}: {launches[name]} launches on the lossless main "
+              f"path, expected {want_n}")
+    print(f"[5] lossless main path: 2 frames 1920x1080 AI QP32 on {kind}: "
           f"{len(bs)} bytes, {elapsed:.2f} s, "
           f"{len(frames) / elapsed:.4f} frames/s; recon == source; "
           f"launches {launches}; phases (thread-seconds) "
           f"{json.dumps(perf.report())}", flush=True)
 
-    # 6. kernel path byte-equal to the plain path at 416x240
+    # 6. the lossy main path (slice 2a), two frames, counted
+    lossy_sps = dict(deblocking=True, mts_intra=True, mip=True)
+    enc = Encoder(SPS(width=W_HD, height=H_HD, **lossy_sps), PPS(init_qp=32))
+    perf.reset()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    coded = [enc.encode_frame(f, poc) for poc, f in enumerate(frames)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ops.COUNTS)
+    for name, per_frame in LOSSY_LAUNCHES.items():
+        check(launches[name] == per_frame * len(frames),
+              f"{name}: {launches[name]} launches on the lossy main path, "
+              f"expected {per_frame * len(frames)}")
+    nbytes = 0
+    for (nals, rec, st6), f in zip(coded, frames):
+        check([n.nal_type for n in nals] == [8, 24],
+              f"lossy picture NALs {[n.nal_type for n in nals]}")
+        for a, b in ((f.y, rec.y), (f.cb, rec.cb), (f.cr, rec.cr)):
+            check(a.shape == b.shape and int(b.min()) >= 0
+                  and int(b.max()) <= 255, "lossy recon out of range")
+        check(30.0 < st6["psnr_y"] < 60.0, f"PSNR-Y {st6['psnr_y']}")
+        nbytes += sum(len(n.payload) + 2 for n in nals)
+    psnr_y = [round(float(c[2]["psnr_y"]), 4) for c in coded]
+    print(f"[6] lossy main path: 2 frames 1920x1080 AI QP32 (MTS, MIP, "
+          f"deblocking) on {kind}: {nbytes} bytes, {elapsed:.2f} s, "
+          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y {psnr_y} dB; "
+          f"launches {launches}; phases (thread-seconds) "
+          f"{json.dumps(perf.report())}", flush=True)
+
+    # 7. kernel path byte-equal to the plain path at 416x240
     small = [synth_frame(416, 240, t) for t in range(2)]
     for kw in ({}, {"num_tile_cols": 2}):
         a = encode_sequence(small, qp=32, lossless=True, **kw)[0]
         with ops.plain():
             b = encode_sequence(small, qp=32, lossless=True, **kw)[0]
-        check(a == b, f"416x240 {kw}: kernel stream != plain stream")
-        print(f"[6] 416x240 {kw or 'single tile'}: {len(a)} bytes, kernel "
-              "stream == plain stream", flush=True)
-    print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f} s",
+        check(a == b, f"416x240 lossless {kw}: kernel stream != plain stream")
+        pps = PPS(init_qp=32, num_tile_cols=kw.get("num_tile_cols", 1))
+        sps = SPS(width=416, height=240, **lossy_sps)
+        a = [n.payload for poc, f in enumerate(small)
+             for n in Encoder(sps, pps).encode_frame(f, poc)[0]]
+        with ops.plain():
+            b = [n.payload for poc, f in enumerate(small)
+                 for n in Encoder(sps, pps).encode_frame(f, poc)[0]]
+        check(a == b, f"416x240 lossy {kw}: kernel stream != plain stream")
+        print(f"[7] 416x240 {kw or 'single tile'}: lossless and lossy "
+              f"({sum(map(len, a))} bytes) kernel streams == plain streams",
+              flush=True)
+    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    src = {"ref_lines": "vvc_torch/csrc/ref_lines.cu",
-           "intra_pred_all": "vvc_torch/csrc/intra_pred.cu",
-           "satd": "vvc_torch/csrc/satd.cu"}
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
            "intra_pred_all": "vvc/kernels/intra.py:671",
-           "satd": "vvc/kernels/satd.py:37"}
-    table = [{"name": k, "route": "cuda", "source": src[k],
+           "satd": "vvc/kernels/satd.py:37",
+           "transform_fwd": "vvc/kernels/transform.py:78",
+           "transform_inv": "vvc/kernels/transform.py:94",
+           "quant_rate": "vvc/kernels/quant.py:87,106; "
+                         "vvc/cabac/rates.py:41",
+           "mip_pred_all": "vvc/kernels/mip.py:112"}
+    table = [{"name": k, "route": "cuda",
+              "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k], "launches": launches[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],

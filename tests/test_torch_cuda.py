@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Marked `cuda`: they skip where no CUDA device is present (the CPU
-test run) and run on the GPU machine with
+test run) and run on the GPU machine (which has no JAX, imported by
+tests/conftest.py) with
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: exact equality (integer kernels)."""
+Tolerance: exact equality (integer kernels; the quant_rate kernel's float
+rates bit for bit)."""
 import numpy as np
 import pytest
 
@@ -54,7 +56,8 @@ def test_kernels_equal_plain(dev, size, bit_depth):
                             .astype(np.int32)).to(dev)
     got, want = _both(satd.satd_batch, preds, orig)
     assert torch.equal(got, want)
-    assert all(ops.COUNTS[k] == before[k] + 1 for k in ops.COUNTS)
+    assert all(ops.COUNTS[k] == before[k] + 1
+               for k in ("ref_lines", "intra_pred_all", "satd"))
 
 
 @pytest.mark.parametrize("h,w", [(4, 8), (8, 4), (16, 8), (8, 32)])
@@ -77,3 +80,56 @@ def test_wrapper_rejects_int64(dev):
         satd.satd_batch(torch.zeros((2, 3, 8, 8), dtype=torch.int64,
                                     device=dev),
                         torch.zeros((2, 8, 8), dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+@pytest.mark.parametrize("size", (8, 16, 32, 64))
+def test_lossy_kernels_equal_plain(dev, size, bit_depth):
+    """transform_fwd → quant_rate → transform_inv for every MTS pair of the
+    size, and MIP at 8..32: kernels against their plain versions; the
+    rates bit for bit."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import mip, quant, transform
+    rng = np.random.default_rng(size * bit_depth + 1)
+    lim = 1 << bit_depth
+    resi = torch.from_numpy(rng.integers(-lim + 1, lim, (300, size, size))
+                            .astype(np.int32)).to(dev)
+    before = dict(ops.COUNTS)
+    pairs = range(len(transform.MTS_TR)) if size <= 32 else (0,)
+    for mi in pairs:
+        th, tv = transform.MTS_TR[mi]
+        coeff, want = _both(transform.fwd_transform_batch, resi, bit_depth,
+                            th, tv)
+        assert torch.equal(coeff, want)
+        for qp in (0, 22, 37, 51, 63):
+            got, want = _both(quant.quant_rate, coeff, qp, bit_depth)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1].view(torch.int32),
+                               want[1].view(torch.int32))
+            assert torch.equal(got[2], want[2])
+        rec, want = _both(transform.inv_transform_batch, got[2], bit_depth,
+                          th, tv)
+        assert torch.equal(rec, want)
+    if size <= 32:
+        refs = torch.from_numpy(rng.integers(0, lim, (200, 4 * size + 3))
+                                .astype(np.int32)).to(dev)
+        got, want = _both(mip.mip_predict_all_batch, refs, size, bit_depth)
+        assert torch.equal(got, want)
+    assert ops.COUNTS["quant_rate"] == before["quant_rate"] + 5 * len(pairs)
+    assert ops.COUNTS["transform_fwd"] == before["transform_fwd"] + len(pairs)
+
+
+@pytest.mark.parametrize("qp", (22, 37))
+def test_lossy_search_vector_equal_plain(dev, qp):
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import rdo
+    from vvc_torch.io.synth import synth_frame
+    w, h = 416, 240
+    shapes = rdo._candidate_shapes(64, 8, False)
+    vec = torch.from_numpy(rdo.pack_planes(synth_frame(w, h, 1).y)).to(dev)
+    got, want = _both(rdo.eval_all_sizes, vec, shapes, qp, 8, w, h, False,
+                      False)
+    assert torch.equal(got, want)
+    assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS)

@@ -1,7 +1,8 @@
-"""vvc_torch stands alone: after importing it and running a tiny CPU
-encode, no JAX module and no module of the JAX package `vvc` is loaded;
-and the entry point, given no device, asks for CUDA and raises where
-CUDA is absent instead of falling back to the CPU."""
+"""vvc_torch stands alone: after importing it and running tiny CPU
+encodes — lossless encode_sequence and a lossy Encoder.encode_frame with
+MTS, MIP and deblocking — no JAX module and no module of the JAX package
+`vvc` is loaded; and the entry points, given no device, ask for CUDA and
+raise where CUDA is absent instead of falling back to the CPU."""
 import json
 import os
 import subprocess
@@ -13,22 +14,29 @@ _PROBE = r"""
 import json, sys
 import torch
 import vvc_torch
-from vvc_torch.enc.encoder import encode_sequence
+from vvc_torch.enc.encoder import Encoder, encode_sequence
+from vvc_torch.hls.ps import PPS, SPS
 from vvc_torch.io.synth import synth_frame
 from vvc_torch import ops
 frames = [synth_frame(64, 64, t) for t in range(2)]
 bs, recons, _ = encode_sequence(frames, qp=32, lossless=True, device="cpu")
 ok = all((f.y == r.y).all() for f, r in zip(frames, recons))
-raised = None
+sps = SPS(width=64, height=64, deblocking=True, mts_intra=True, mip=True)
+nals, rec, stats = Encoder(sps, PPS(init_qp=32), device="cpu").encode_frame(
+    frames[0], 0)
+lossy_ok = bool(len(nals) == 2 and 20 < stats["psnr_y"] < 60)
+raised = []
 if not torch.cuda.is_available():
-    try:
-        encode_sequence(frames, qp=32, lossless=True)
-    except RuntimeError as e:
-        raised = str(e)
+    for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
+                 lambda: Encoder(sps, PPS(init_qp=32))):
+        try:
+            call()
+        except RuntimeError as e:
+            raised.append(str(e))
 print(json.dumps({
     "mods": sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
-    "bytes": len(bs), "ok": ok, "raised": raised,
+    "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok, "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
 
@@ -41,8 +49,11 @@ def test_port_imports_no_jax_and_no_vvc():
                          check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
     assert res["mods"] == []
-    assert res["ok"] and res["bytes"] > 0
+    assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert res["counts"] == {"ref_lines": 0, "intra_pred_all": 0, "satd": 0}
-    if res["raised"] is not None or not res["cuda"]:
-        assert res["raised"] and "CUDA is not available" in res["raised"]
+    assert res["counts"] == {k: 0 for k in (
+        "ref_lines", "intra_pred_all", "satd", "transform_fwd",
+        "transform_inv", "quant_rate", "mip_pred_all")}
+    if not res["cuda"]:
+        assert len(res["raised"]) == 2
+        assert all("CUDA is not available" in r for r in res["raised"])

@@ -1,6 +1,7 @@
-"""Port of the lossless intra RDO search (vvc_torch.enc.rdo) against
-vvc.enc.rdo on the CPU backend.  Tolerance: bit-exact — the packed search
-vector carries float32 costs that the host DP compares bit for bit."""
+"""Port of the intra RDO search (vvc_torch.enc.rdo), lossless and lossy
+(MTS + MIP RD), against vvc.enc.rdo on the CPU backend.  Tolerance:
+bit-exact — the packed search vector carries float32 costs that the host
+DP compares bit for bit, at every block size 8..64."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,9 +84,65 @@ def test_argmin_tie_takes_first_like_jnp(port):
     assert best_mode.dtype == torch.int32
 
 
-def test_lossy_and_mtt_raise_not_implemented(frame, port):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port.rdo_partition(frame.y, 32, 8, lossless=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port.rdo_partition(frame.y, 32, 8, lossless=True, mtt=True,
-                           device="cpu")
+@pytest.mark.parametrize("qp", (22, 32, 37))
+def test_lossy_packed_search_vector_bit_equal(frame, port, qp):
+    """Lossy MTS + MIP search (LFNST and chroma off): costs, modes and MTS
+    choices of every size 8..64 bit-equal to vvc's jitted program."""
+    import torch
+    vec = ref.pack_planes(frame.y)
+    want = np.asarray(ref.eval_all_sizes(jnp.asarray(vec), SHAPES,
+                                         jnp.int32(qp), 8, W, H, False,
+                                         False, False, False))
+    got = port.eval_all_sizes(torch.from_numpy(vec), SHAPES, qp, 8, W, H,
+                              False, False, False, False).numpy()
+    tail = sum(6 * (H // 32) * (W // 32) for _ in ref._tt_descriptors(SHAPES))
+    assert len(want) == len(got) + tail
+    np.testing.assert_array_equal(got, want[:len(got)])
+    res = port.unpack_results(got, SHAPES, W, H)
+    assert any((r[1] >= 67).any() for r in res.values())      # MIP won
+    assert any((r[2] > 0).any() for r in res.values())        # MTS won
+
+
+def test_eval_blocks_top3_tie_keeps_lower_index(port):
+    """Flat reference lines make every angular, DC, planar and MIP
+    prediction the same, so the SATD prescreen ties across modes and
+    `lax.top_k` keeps the lower index: planar, DC, then the first MIP
+    mode.  The port's stable shortlist must pick the same three."""
+    import torch
+    s = 16
+    rng = np.random.default_rng(3)
+    orig = (128 + rng.integers(-3, 4, (6, s, s))).astype(np.int32)
+    refs = np.full((6, 4 * s + 3), 128, dtype=np.int32)
+    refs[3:] = 90
+    fn = jax.jit(ref.eval_blocks, static_argnames=(
+        "size", "bit_depth", "try_mts", "lossless", "try_mip", "try_lfnst"))
+    want = fn(jnp.asarray(orig), jnp.asarray(refs), size=s, qp=32,
+              bit_depth=8, try_mts=True, lossless=False, try_mip=True,
+              try_lfnst=False)
+    got = port.eval_blocks(torch.from_numpy(orig), torch.from_numpy(refs), s,
+                           32, 8, try_mts=True, lossless=False, try_mip=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+    lam, sqrt_lam = port.lambda_f32(32)
+    satd = torch.zeros((1, 76), dtype=torch.float64)
+    bits = np.concatenate([port._MODE_BITS, np.full(9, port._MIP_BITS,
+                                                    np.float32)])
+    pre = (satd + float(sqrt_lam) * torch.from_numpy(bits.astype(np.float64))
+           ).to(torch.float32)
+    short = torch.sort(pre, dim=1, stable=True).indices[0, :3].tolist()
+    assert short == [0, 1, 67]
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"lossless": False, "lfnst": True}, "slice 2b"),
+    ({"lossless": False, "lfnst": False, "chroma_planes": "frame"},
+     "slice 2b"),
+    ({"lossless": False, "lfnst": False, "isp": True}, "slice 2c"),
+    ({"lossless": True, "mtt": True}, "slice 2c")],
+    ids=["lfnst", "cclm", "isp", "mtt"])
+def test_lossy_and_mtt_raise_not_implemented(frame, port, kw, match):
+    if kw.get("chroma_planes") == "frame":
+        kw = dict(kw, chroma_planes=(frame.cb, frame.cr))
+    with pytest.raises(NotImplementedError, match=match):
+        port.rdo_partition(frame.y, 32, 8, device="cpu", **kw)

@@ -1,8 +1,9 @@
 """The tables the port carries across from vvc — its "weights" — equal
 vvc's: intra angular/PDPC tables and filters, transform matrices, scans
-and quant scales, MIP matrices, CABAC context init and measured
-rates, the RDO mode bits, and the native CABAC core's source.
-Tolerance: exact equality."""
+and quant scales, MIP and LFNST matrices, CABAC context init and measured
+rates, XLA's float32 log table behind the level rate, the RDO mode, MTS
+and MIP bits, the APS writer, and the native CABAC and reconstruction
+cores' sources.  Tolerance: exact equality."""
 import os
 
 import numpy as np
@@ -15,13 +16,18 @@ import vvc.cabac.residual as ref_residual
 import vvc.enc.rdo as ref_rdo
 import vvc.kernels.intra as ref_intra
 import vvc.rom.intra_filters as ref_filt
+import vvc.hls.aps as ref_aps
+import vvc.rom.lfnst_mats as ref_lfnst
 import vvc.rom.mip_mats as ref_mip
 import vvc.rom.transform_mats as ref_tm
 import vvc_torch.cabac.ctx as port_ctx
 import vvc_torch.cabac.rates as port_rates
 import vvc_torch.cabac.rates_ctx as port_rates_ctx
 import vvc_torch.cabac.residual as port_residual
+import vvc_torch.hls.aps as port_aps
 import vvc_torch.rom.intra_filters as port_filt
+import vvc_torch.rom.lfnst_mats as port_lfnst
+import vvc_torch.rom.log_table as port_log
 import vvc_torch.rom.mip_mats as port_mip
 import vvc_torch.rom.transform_mats as port_tm
 
@@ -78,6 +84,37 @@ def test_transform_tables_equal():
 def test_mip_lfnst_matrices_equal():
     _eq(port_mip.mip_weights(), ref_mip.mip_weights())
     _eq(port_mip.K_MIP_MODES, ref_mip.K_MIP_MODES)
+    _eq(port_lfnst.lfnst_kernels(), ref_lfnst.lfnst_kernels())
+
+
+def test_xla_log_table_regenerated_from_jnp():
+    """Every entry of the port's float32 log table is XLA-CPU's jnp.log of
+    1..32768, bit for bit (the level rate's log2 is log·(1/ln 2) there)."""
+    import jax
+    import jax.numpy as jnp
+    x = jnp.arange(1, port_log.N_LOG + 1, dtype=jnp.int32).astype(jnp.float32)
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = port_log.xla_log_f32()
+    assert got.dtype == np.float32 and got.shape == (port_log.N_LOG,)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    log2 = np.asarray(jax.jit(jnp.log2)(x))
+    np.testing.assert_array_equal(
+        (got * port_rates.log_scale_f32() / np.float32(2)).view(np.uint32),
+        log2.view(np.uint32))
+
+
+def test_aps_writer_equal():
+    rng = np.random.default_rng(5)
+    luma = (rng.integers(-60, 60, (3, 12)), rng.integers(0, 4, 3),
+            rng.integers(0, 3, 25))
+    chroma = rng.integers(-60, 60, (6,))
+    cw = [int(v) for v in rng.integers(20, 60, 16)]
+    for args in ((3, luma, None), (7, None, chroma),
+                 (1, luma, chroma, chroma[:4], chroma[2:])):
+        assert port_aps.write_aps_alf(*args) == ref_aps.write_aps_alf(*args)
+    assert (port_aps.parse_aps(port_aps.write_aps_lmcs(2, cw))
+            == ref_aps.parse_aps(ref_aps.write_aps_lmcs(2, cw)))
+    assert port_aps.write_aps_lmcs(2, cw) == ref_aps.write_aps_lmcs(2, cw)
 
 
 def test_cabac_context_tables_equal():
@@ -94,6 +131,9 @@ def test_cabac_context_tables_equal():
 def test_rdo_constants_equal():
     import vvc_torch.enc.rdo as port_rdo
     _eq(port_rdo._MODE_BITS, ref_rdo._MODE_BITS)
+    _eq(port_rdo._MTS_BITS, ref_rdo._MTS_BITS)
+    _eq(port_rdo._MIP_BITS, ref_rdo._MIP_BITS)
+    _eq(port_rdo.RD_SHORTLIST, ref_rdo.RD_SHORTLIST)
     for name in ("SPLIT_LEAF_BITS", "SPLIT_BITS", "QT_FLAG_BITS",
                  "MTT_FLAG_BITS", "MTT_DIR_BITS", "BT_FLAG_BITS",
                  "TT_FLAG_BITS", "TT_MARGIN_BITS"):
@@ -111,3 +151,13 @@ def test_cabac_core_source_equal_but_comments():
                     if not l.lstrip().startswith("//")]
     assert (code("vvc_torch/packer/cabac_core.cpp")
             == code("vvc/packer/cabac_core.cpp"))
+
+
+def test_recon_core_source_equal_but_comments():
+    """The reconstruction core is a copy too; only comments differ."""
+    def code(path):
+        with open(os.path.join(ROOT, path)) as fh:
+            return [l for l in fh.read().splitlines()
+                    if not l.lstrip().startswith("//")]
+    assert (code("vvc_torch/packer/recon_core.cpp")
+            == code("vvc/packer/recon_core.cpp"))

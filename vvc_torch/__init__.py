@@ -10,8 +10,10 @@ Device work runs through hand-written CUDA kernels for Hopper (`csrc/`,
 built and loaded by `vvc_torch.ops`).  Entry points run on the card unless
 the caller passes ``device="cpu"``; there is no silent CPU fallback.
 
-Slice 1 (this package today): lossless All-Intra encoding through
-`vvc_torch.enc.encoder.encode_sequence(frames, lossless=True)`.
+Today the package runs lossless All-Intra encoding through
+`vvc_torch.enc.encoder.encode_sequence(frames, lossless=True)` (slice 1)
+and lossy All-Intra pictures with MTS, MIP and deblocking through
+`vvc_torch.enc.encoder.Encoder.encode_frame` (slice 2a).
 """
 
 __version__ = "0.1.0"

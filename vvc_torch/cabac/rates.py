@@ -17,7 +17,11 @@ both on device (RDO) and in the host trellis.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
+
+from vvc_torch.rom.log_table import xla_log_f32
 
 # measured average bits to code |level| = k (luma, adapted contexts);
 # index 0..9, extrapolated beyond with the EG-remainder slope measured 2.0
@@ -35,6 +39,52 @@ def level_bits_np(abs_lev: np.ndarray) -> np.ndarray:
     base = LEVEL_BITS_TABLE[k]
     over = np.maximum(a.astype(np.float32) - (len(LEVEL_BITS_TABLE) - 1), 0.0)
     return base + _EG_SLOPE * np.log2(1.0 + over)
+
+
+# float32 bits of 1/ln 2 as XLA folds log2(x) = log(x)·(1/ln 2); times the
+# EG slope (a power of two) it stays exact: the factor of the one FMA
+# level_bits_jnp compiles to, base + log(1 + over)·(2/ln 2)
+_INV_LN2_F32_BITS = 0x3FB8AA3B
+MAX_LEVEL = 32767     # quant clips |level| to 15 bits
+
+
+def log_scale_f32() -> np.float32:
+    """float32 2/ln 2, the multiplier of log(1 + over) in the level rate."""
+    inv_ln2 = np.array([_INV_LN2_F32_BITS], dtype=np.uint32).view(
+        np.float32)[0]
+    return np.float32(_EG_SLOPE) * inv_ln2
+
+
+@lru_cache(maxsize=None)
+def level_bits_table() -> np.ndarray:
+    """[32768] float32: the rate of |level| = 0..32767 bit for bit as
+    vvc's jitted `level_bits_jnp` computes it on XLA-CPU: one FMA,
+    fma(log(1 + over), 2/ln 2, base), with XLA's own float32 log
+    (vvc_torch/rom/log_table.py).  The FMA is evaluated in float64 (the
+    product of two float32 is exact there); the single float64 rounding
+    before the float32 one changes no entry (tests/test_torch_quant.py
+    compares all 32768 with JAX)."""
+    a = np.arange(MAX_LEVEL + 1)
+    k = np.minimum(a, len(LEVEL_BITS_TABLE) - 1)
+    over = np.maximum(a - (len(LEVEL_BITS_TABLE) - 1), 0)
+    log = xla_log_f32()[over].astype(np.float64)          # log(1 + over)
+    val = (LEVEL_BITS_TABLE[k].astype(np.float64)
+           + log * np.float64(log_scale_f32())).astype(np.float32)
+    val.setflags(write=False)
+    return val
+
+
+@lru_cache(maxsize=None)
+def _level_bits_dev(device: str):
+    import torch   # host users of this module (depquant, rdo DP) need none
+    return torch.from_numpy(level_bits_table().copy()).to(device)
+
+
+def level_bits(abs_lev):
+    """Torch twin of vvc/cabac/rates.py:41 level_bits_jnp: |level| int
+    tensor (0..32767) → float32 bits, bit-equal to XLA's values."""
+    tab = _level_bits_dev(str(abs_lev.device))
+    return tab[abs_lev.clamp(0, MAX_LEVEL).long()]
 
 
 def level_bits_scalar(l: int) -> float:

@@ -1,11 +1,14 @@
 """All-Intra encoder: frames → Annex-B bitstream + reconstruction.
 
 Port of vvc/enc/encoder.py (`Encoder`, `encode_sequence`) with `device`
-threaded through to the RDO search, which is the only device work.  Slice
-1 runs lossless All-Intra (transquant bypass, no loop filters); lossy
-coding, the loop filters and inter modes raise NotImplementedError naming
-the slice that brings them.  Everything after the search is the host code
-of vvc, copied.
+threaded through to the RDO search, which is the only device work.  It
+runs lossless All-Intra (slice 1) and, through `Encoder.encode_frame`,
+lossy All-Intra with MTS, MIP and deblocking (slice 2a).  The options of
+later slices raise NotImplementedError naming their slice: LFNST and CCLM
+(2b), MTT, ISP, MRL, LMCS, dependent quantization and WPP (2c), SAO and
+ALF (3), inter (4).  `encode_sequence(lossless=False)` raises too: its SPS
+turns on LFNST, CCLM, SAO and ALF.  Everything after the search is the
+host code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -40,6 +43,8 @@ from vvc_torch.cabac.ctx import SliceContexts
 from vvc_torch.cabac.cu_syntax import TreeWriter
 from vvc_torch.model.frame import CodingState
 from vvc_torch.model.recon import reconstruct_leaves
+from vvc_torch.kernels.deblock import deblock_frame
+from vvc_torch.utils.trace import active as _trace
 from vvc_torch.enc.rdo import (rdo_partition, rdo_partition_dispatch,
                                rdo_partition_finish, rdo_partition_frames,
                                rdo_partition_tiled)
@@ -49,9 +54,30 @@ SEI_PIC_HASH_MD5 = 132  # decoded_picture_hash payload type
 
 
 def _not_in_slice(what: str, slice_name: str):
-    return NotImplementedError(
-        f"vvc_torch: {what} arrives with {slice_name}; slice 1 runs "
-        "lossless All-Intra only")
+    return NotImplementedError(f"vvc_torch: {what} arrives with {slice_name}")
+
+
+_SLICE_2B = "slice 2b (LFNST and chroma)"
+_SLICE_2C = "slice 2c (MTT, ISP, MRL, LMCS, dependent quantization, WPP)"
+_SLICE_3 = "slice 3 (SAO and ALF statistics)"
+
+
+def _check_sps(sps: SPS, pps: PPS) -> None:
+    """Raise for every SPS/PPS option outside the ported slices."""
+    if not sps.lossless:
+        for on, what, where in ((sps.lfnst, "LFNST", _SLICE_2B),
+                                (sps.cclm, "CCLM", _SLICE_2B),
+                                (sps.sao, "SAO", _SLICE_3),
+                                (sps.alf, "ALF", _SLICE_3)):
+            if on:
+                raise _not_in_slice(what, where)
+    for on, what in ((sps.max_mtt_depth_intra > 0, "MTT"),
+                     (sps.isp, "ISP"), (sps.mrl, "MRL"),
+                     (sps.lmcs, "LMCS"),
+                     (sps.dep_quant, "dependent quantization"),
+                     (pps.wpp, "WPP row substreams")):
+        if on:
+            raise _not_in_slice(what, _SLICE_2C)
 
 
 def _hash_sei_payload(planes, bit_depth: int = 8) -> bytes:
@@ -111,6 +137,22 @@ class Encoder:
                                dep_quant=sps.dep_quant,
                                pred_cache=preds if preds else None)
 
+    def _entropy_tile_native(self, leaves_t, size_map, tx0, tx1, qp):
+        """Native C++ tree-syntax writer (intra slices, no SAO parameters
+        until slice 3): one call per tile (vvc_torch/packer/cabac_core.cpp
+        tw_write), as vvc's encoder does."""
+        sps = self.sps
+        ctxs = SliceContexts(qp)
+        enc = native_packer.NativeBinEncoder(ctxs)
+        recs, levels = native_packer.serialize_leaves(leaves_t)
+        tw = native_packer.NativeTreeWriter(
+            min(tx1, sps.width), sps.height, sps.ctu_size, sps.min_cu_size,
+            mts=sps.mts_intra, cclm=sps.cclm, mip=sps.mip, lfnst=sps.lfnst)
+        tw.write(enc, ctxs, size_map, recs, levels, None, 0,
+                 tx0, tx1, 0, sps.height, tx0)
+        enc.encode_bin_trm(1)
+        return enc.finish()
+
     def _entropy_tile(self, split_map, leaf_map, tx0, tx1, qp, sao_params,
                       slice_type=SliceType.I, n_ref=(0, 0),
                       col_info=(None, 0, ((), ())), ty0=0, ty1=None):
@@ -164,12 +206,7 @@ class Encoder:
         sps, pps = self.sps, self.pps
         if slice_type != SliceType.I or refs_l0 or refs_l1 or col is not None:
             raise _not_in_slice("inter slices", "the inter slice")
-        if not sps.lossless:
-            raise _not_in_slice("lossy coding and the loop filters",
-                                "slice 2 (lossy All-Intra)")
-        if pps.wpp:
-            raise _not_in_slice("WPP row substreams",
-                                "slice 2 (lossy All-Intra)")
+        _check_sps(sps, pps)
         qp = pps.init_qp if qp is None else qp
         bd = sps.bit_depth
 
@@ -193,6 +230,8 @@ class Encoder:
                 mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp,
                 device=self.device)
 
+        cols = tile_columns(pps.num_tile_cols, sps.width, sps.ctu_size)
+        rows = tile_columns(pps.num_tile_rows, sps.height, sps.ctu_size)
         tiles = tile_grid(pps.num_tile_cols, pps.num_tile_rows, sps.width,
                           sps.height, sps.ctu_size)
         recon = (np.zeros_like(frame.y), np.zeros_like(frame.cb),
@@ -214,10 +253,29 @@ class Encoder:
                 for i in range(len(tiles)):
                     recon_tile(i)
 
-        # phase 2: entropy per tile (parallel); lossless has no loop
-        # filters and no SAO parameters
+        # phase 2: in-loop deblocking (lossless has no loop filters; SAO
+        # and ALF arrive with slice 3)
+        with perf.phase("filters"):
+            if sps.deblocking and not sps.lossless:
+                with perf.phase("filt_deblock"):
+                    deblock_frame(recon, leaves, qp, bd,
+                                  tile_x_bounds=tuple(t[0] for t in cols[1:]),
+                                  tile_y_bounds=tuple(t[0] for t in rows[1:]))
+
+        # phase 3: entropy per tile (parallel).  As in vvc, lossy intra
+        # slices run the native C++ tree writer; lossless, other CTU sizes,
+        # tile rows and tracing the Python TreeWriter.
+        use_native = (sps.ctu_size == 64 and pps.num_tile_rows == 1
+                      and not sps.lossless and not _trace().enabled)
+        if use_native:
+            size_map = native_packer.build_size_map(
+                leaves, sps.width, sps.height, sps.min_cu_size)
+
         def entropy_tile(i):
             tx0, tx1, ty0, ty1 = tiles[i]
+            if use_native:
+                return self._entropy_tile_native(
+                    leaves_per_tile[i], size_map, tx0, tx1, qp)
             return self._entropy_tile(split_map, leaf_map, tx0, tx1, qp,
                                       None, ty0=ty0, ty1=ty1)
 
@@ -273,21 +331,25 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
 
     Same signature as vvc.enc.encoder.encode_sequence plus `device`:
     None = CUDA (raises when CUDA is absent), "cpu" = the plain PyTorch
-    path.  Slice 1 supports mode="ai" with lossless=True; other modes,
-    lossy coding, rate control, the sharded path and checkpointing raise
-    NotImplementedError naming the slice that brings them.
+    path.  It runs mode="ai" with lossless=True; other modes, lossy
+    coding (whose SPS needs slices 2b and 3), rate control, the sharded
+    path and checkpointing raise NotImplementedError naming the slice
+    that brings them.
     recons/stats are returned in display (POC) order."""
     from vvc_torch.enc.gop import gop_order
 
     if mode != "ai":
         raise _not_in_slice(f"mode={mode!r}", "the inter slice")
     if not lossless:
-        raise _not_in_slice("lossless=False", "slice 2 (lossy All-Intra)")
+        raise _not_in_slice(
+            "lossless=False (its SPS turns on LFNST, CCLM, SAO and ALF)",
+            f"{_SLICE_2B} and {_SLICE_3}; lossy All-Intra with MTS, MIP "
+            "and deblocking runs through Encoder.encode_frame")
     if wpp:
-        raise _not_in_slice("WPP row substreams",
-                            "slice 2 (lossy All-Intra)")
+        raise _not_in_slice("WPP row substreams", _SLICE_2C)
     if target_kbps > 0:
-        raise _not_in_slice("rate control", "slice 2 (lossy All-Intra)")
+        raise _not_in_slice("rate control", f"lossy encode_sequence, after "
+                            f"{_SLICE_2B} and {_SLICE_3}")
     if _precomputed_rdo is not None:
         raise _not_in_slice("the sharded search", "the multi-GPU slice")
     if checkpoint_path or resume:

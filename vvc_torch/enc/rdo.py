@@ -1,21 +1,31 @@
 """Batched intra RDO: enumerate–mask–reduce partition/mode search.
 
 Port of vvc/enc/rdo.py (reference: EncCu.cpp → xCompressCU; IntraSearch.cpp
-→ estIntraPredLumaQT's SATD prescreen):
+→ estIntraPredLumaQT's SATD prescreen + RD shortlist):
 
   1. For every QT candidate size (8..64), evaluate ALL blocks of the frame
      at that size on the device: reference lines from the original plane
      (`build_ref_lines_device`, CUDA kernel csrc/ref_lines.cu), 67-mode
-     prediction (vvc_torch.kernels.intra, csrc/intra_pred.cu) and SATD
-     (vvc_torch.kernels.satd, csrc/satd.cu), then the per-block min/argmin
-     of SATD + √λ·mode bits.  One packed int32 vector per frame comes back.
+     prediction (csrc/intra_pred.cu) plus, lossy at 8..32, the 9 MIP modes
+     (csrc/mip.cu), and the SATD prescreen (csrc/satd.cu).  Lossless stops
+     there: SATD + √λ·mode bits is the cost.  Lossy keeps a stable top-3
+     shortlist and runs full RD on it — forward transform
+     (csrc/transform.cu), quantise + level rate + dequantise
+     (csrc/quant_rate.cu), inverse transform, SSE — with DCT2 (stage A),
+     then the four other MTS pairs on the winner at 8..32 (stage B).  One
+     packed int32 vector per frame comes back.
   2. The host DP over the size pyramid (`_dp_backtrack`, copied unchanged)
      picks split/leaf per node.
 
-Slice 1 ports the lossless (transquant-bypass) search, where SATD is the
-rate proxy and no RD stage runs.  The lossy RD stage (transform, quant,
-level rate, MIP, LFNST, CCLM, ISP) and the MTT lattice raise
-NotImplementedError until slice 2.
+The float32 costs are bit-equal to vvc's on XLA-CPU, because the host DP
+compares them bit for bit: λ and √λ are float32 bit tables, the level rate
+is XLA's own (vvc_torch.cabac.rates.level_bits), block sums follow XLA's
+order (vvc_torch.kernels.quant.xla_block_sum) and `sse + λ·(rate + bits)`
+is rounded once, as the FMA XLA-CPU contracts it to.
+
+Options of later slices raise NotImplementedError naming the slice: LFNST
+and the device chroma decision (slice 2b), ISP and the MTT lattice
+(slice 2c).
 
 Deviation from vvc: the JAX program also evaluates the TT middle-child
 planes (`_tt_descriptors`) for the QT-only candidate list, whose DP never
@@ -31,11 +41,19 @@ import torch
 
 from vvc_torch import ops
 from vvc_torch.kernels.intra import predict_all_modes_batch
+from vvc_torch.kernels.lfnst import lfnst_allowed
+from vvc_torch.kernels.mip import (K_MIP_MODES, MIP_MODE_BASE, mip_allowed,
+                                   mip_predict_all_batch)
+from vvc_torch.kernels.quant import quant_rate, xla_block_sum
 from vvc_torch.kernels.satd import satd_batch
+from vvc_torch.kernels.transform import (MTS_TR, fwd_transform_batch,
+                                         inv_transform_batch)
 from vvc_torch.model.frame import Leaf
 from vvc_torch.utils.trace import active as _trace
 from vvc_torch.model.partition import (SPLIT_NONE, SPLIT_QT,
                                        SPLIT_BT_H, SPLIT_BT_V)
+
+RD_SHORTLIST = 3  # full-RD candidates after SATD prescreen (EncModeCtrl analog)
 
 # approximate mode signalling cost in bits (MPM statistics analog)
 _MODE_BITS = np.full((67,), 7.0, dtype=np.float32)
@@ -43,6 +61,12 @@ _MODE_BITS[0] = 2.5   # planar (MPM[0])
 _MODE_BITS[1] = 4.0   # DC
 _MODE_BITS[18] = 5.0
 _MODE_BITS[50] = 5.0
+
+# approximate mts_idx signalling cost (truncated-unary ctx bins)
+_MTS_BITS = (0.5, 2.0, 3.0, 4.0, 4.0)
+
+# approximate MIP signalling cost: mip_flag + TB(K) mode bits
+_MIP_BITS = 4.5
 
 # float32 bits of λ = 0.57·2^((qp−12)/3) and √λ for qp 0..63, as the JAX
 # reference computes them (XLA's exp2 differs from libm's in the last bit
@@ -86,10 +110,17 @@ def rd_lambda(qp: int) -> float:
     return 0.57 * (2.0 ** ((qp - 12) / 3.0))
 
 
-def _slice2(what: str):
+def _later(what: str, slice_name: str):
     return NotImplementedError(
-        f"vvc_torch: {what} arrives with slice 2 (lossy All-Intra); "
-        "slice 1 runs lossless=True only")
+        f"vvc_torch: {what} arrives with {slice_name}")
+
+
+def _slice2b(what: str):
+    return _later(what, "slice 2b (LFNST and chroma)")
+
+
+def _slice2c(what: str):
+    return _later(what, "slice 2c (MTT, ISP, WPP)")
 
 
 def build_ref_lines_device_plain(plane: torch.Tensor, xs: torch.Tensor,
@@ -160,26 +191,123 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     """[N,S,S] originals + [N,4S+3] refs → (best_cost [N] f32, best_mode
     [N] i32, best_mts [N] i32, best_lfnst [N] i32).
 
-    Lossless (transquant bypass): SATD over the 67 modes + √λ·mode bits is
-    the whole cost; argmin keeps the first minimum like jnp.argmin."""
-    if not lossless or try_mts or try_mip or try_lfnst:
-        raise _slice2("the lossy RD stage (MTS/MIP/LFNST)")
+    SATD prescreen over the 67 modes (+ the 9 MIP modes 67..75 when
+    try_mip) + √λ·mode bits.  Lossless (transquant bypass): that is the
+    whole cost; argmin keeps the first minimum like jnp.argmin.  Lossy:
+    full RD on the stable top-3 shortlist with DCT2 (stage A), then the
+    four other MTS pairs on the winning mode when try_mts (stage B, strict
+    `<`)."""
+    if try_lfnst:
+        raise _slice2b("LFNST")
     if h is not None and h != size:
-        raise _slice2("rectangular (MTT) shapes")
-    _, sqrt_lam = lambda_f32(qp)
+        raise _slice2c("rectangular (MTT) shapes")
+    lam, sqrt_lam = lambda_f32(qp)
+    n = orig.shape[0]
+    dev = orig.device
     preds = predict_all_modes_batch(refs, size, bit_depth)      # [N,67,S,S]
     satd = satd_batch(preds, orig)                              # [N,67]
+    mode_bits_np = _MODE_BITS
+    mip = None
+    if try_mip:
+        mip = mip_predict_all_batch(refs, size, bit_depth)      # [N,9,S,S]
+        satd = torch.cat([satd, satd_batch(mip, orig)], dim=1)  # [N,76]
+        mode_bits_np = np.concatenate(
+            [_MODE_BITS, np.full((K_MIP_MODES,), _MIP_BITS, np.float32)])
     # cost = satd + √λ·bits with ONE float32 rounding: the JAX program's
-    # XLA fusion contracts the multiply-add into an FMA.  In float64 the
-    # product (24-bit × 3-bit mantissas) and the sum are exact while
-    # satd < 2^26 (the 64×64 10-bit maximum is 6.7e7 < 2^26 = 6.71e7 at
-    # the smallest √λ), so the cast rounds the exact value once, as FMA does.
-    rate = float(sqrt_lam) * torch.from_numpy(
-        _MODE_BITS.astype(np.float64)).to(satd.device)
-    pre_cost = (satd.to(torch.float64) + rate[None, :]).to(torch.float32)
-    best_cost, best_mode = _min_argmin(pre_cost)
-    zeros = torch.zeros_like(best_mode)
-    return best_cost, best_mode, zeros, zeros
+    # XLA fusion contracts the multiply-add into an FMA
+    mode_bits = torch.from_numpy(mode_bits_np).to(dev)
+    pre_cost = _fma_f32(sqrt_lam, mode_bits[None, :], satd)
+    if lossless:
+        best_cost, best_mode = _min_argmin(pre_cost)
+        zeros = torch.zeros_like(best_mode)
+        return best_cost, best_mode, zeros, zeros
+    # lax.top_k(-pre_cost, 3) keeps the lower index on a tie: a stable
+    # ascending sort does the same (torch.topk promises no tie order)
+    short = torch.sort(pre_cost, dim=1, stable=True).indices[:, :RD_SHORTLIST]
+    cand = _gather_modes(preds, mip, short)                     # [N,K,S,S]
+    resi = (orig[:, None] - cand).reshape(-1, size, size)
+    extra = mode_bits[short].reshape(-1) + np.float32(_MTS_BITS[0])
+    cost_a = _rd_pass(resi, cand.reshape(-1, size, size), MTS_TR[0], qp,
+                      lam, extra, bit_depth).reshape(n, RD_SHORTLIST)
+    best_cost, best_k = _min_argmin(cost_a)
+    best_k = best_k.long()
+    best_mode = short.gather(1, best_k[:, None])[:, 0].to(torch.int32)
+    best_mts = torch.zeros_like(best_mode)
+    ar = torch.arange(n, device=dev)
+    bp = cand[ar, best_k]                                       # [N,S,S]
+    br = orig - bp
+    bbits = mode_bits[best_mode.long()]
+    if try_mts:
+        for mi in range(1, len(MTS_TR)):
+            c_mi = _rd_pass(br, bp, MTS_TR[mi], qp, lam,
+                            bbits + np.float32(_MTS_BITS[mi]), bit_depth)
+            better = c_mi < best_cost
+            best_cost = torch.where(better, c_mi, best_cost)
+            best_mts = torch.where(better, torch.full_like(best_mts, mi),
+                                   best_mts)
+    return best_cost, best_mode, best_mts, torch.zeros_like(best_mode)
+
+
+def _gather_modes(preds: torch.Tensor, mip, short: torch.Tensor):
+    """Predictions of the shortlisted modes [N,K,S,S]: angular/DC/planar
+    from preds [N,67,S,S], MIP (mode ≥ 67) from mip [N,9,S,S] — without
+    concatenating the two mode stacks."""
+    n, k = short.shape
+    s = preds.shape[-1]
+    idx = short[:, :, None, None].expand(n, k, s, s)
+    cand = torch.gather(preds, 1, idx.clamp(max=MIP_MODE_BASE - 1))
+    if mip is not None:
+        cand = torch.where(idx >= MIP_MODE_BASE,
+                           torch.gather(mip, 1, (idx - MIP_MODE_BASE)
+                                        .clamp(min=0)), cand)
+    return cand
+
+
+def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int):
+    """RD cost [M] f32 of coding residuals resi [M,S,S] over predictions
+    pred with transform pair tr: fwd transform → quant + level rate +
+    dequant → inverse → SSE, then sse + λ·(rate + extra_bits) rounded once
+    (vvc/enc/rdo.py rd_pass)."""
+    th, tv = tr
+    coeff = fwd_transform_batch(resi, bit_depth, th, tv)
+    _, rate, deq = quant_rate(coeff, qp, bit_depth)
+    rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
+    rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
+    sse = _sse_f32(rec - pred - resi)
+    return _fma_f32(lam, rate + extra_bits, sse)
+
+
+def _sse_f32(d: torch.Tensor) -> torch.Tensor:
+    """Σ d² per block as vvc's float32 `jnp.sum` gives it.  The integer sum
+    is exact; while it stays below 2^24 every float32 partial sum is an
+    exact integer whatever the order, so the cast is the answer.  Larger
+    sums (rare: a 32×32 block needs a mean squared error above 16384) take
+    XLA's summation order."""
+    dl = d.to(torch.int64)
+    exact = (dl * dl).sum(dim=(1, 2))
+    out = exact.to(torch.float32)
+    big = exact >= (1 << 24)
+    if bool(big.any()):
+        dd = d[big].to(torch.float32)
+        out[big] = xla_block_sum(dd * dd, sse=True)
+    return out
+
+
+def _fma_f32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a·b + c rounded once, as the FMA XLA-CPU contracts it to.
+    The float64 product of two float32 values is exact; the sum is made
+    exact by TwoSum and rounded to odd in float64, after which the cast to
+    float32 rounds correctly (53 ≥ 24 + 2 bits)."""
+    p = float(a) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
 
 
 def _min_argmin(cost: torch.Tensor):
@@ -196,11 +324,13 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                     isp_enabled: bool = False):
     """Whole-frame single-size evaluation: plane [H,W] int32 →
     (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32)."""
-    if not lossless or chroma is not None or isp_enabled:
-        raise _slice2("the lossy search (RD stage, chroma decision, ISP)")
+    if chroma is not None:
+        raise _slice2b("the device chroma decision")
+    if isp_enabled and not lossless:
+        raise _slice2c("ISP")
     s = size
     if h is not None and h != s:
-        raise _slice2("rectangular (MTT) shapes")
+        raise _slice2c("rectangular (MTT) shapes")
     dev = plane.device
     blocks = (plane[:ny * s, :nx * s]
               .reshape(ny, s, nx, s).permute(0, 2, 1, 3).reshape(-1, s, s)
@@ -209,8 +339,12 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
           ).repeat_interleave(nx)
     xs = (torch.arange(nx, dtype=torch.int32, device=dev) * s).repeat(ny)
     refs = build_ref_lines_device(plane, xs, ys, s, bit_depth)
+    try_mts = (not lossless) and mts_enabled and 8 <= s <= 32   # spec limit 32
+    try_mip = (not lossless) and mip_allowed(s)
+    try_lfnst = (not lossless) and lfnst_enabled and lfnst_allowed(s)
     cost, mode, mts, lfnst = eval_blocks(blocks, refs, s, qp, bit_depth,
-                                         lossless=True)
+                                         try_mts, lossless, try_mip,
+                                         try_lfnst)
     z = torch.zeros_like(mode)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
             lfnst.reshape(ny, nx), z.reshape(ny, nx), z.reshape(ny, nx))
@@ -219,7 +353,7 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
 def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                          lfnst=True, cb=None, cr=None, isp=False):
     if cb is not None:
-        raise _slice2("the device chroma decision")
+        raise _slice2b("the device chroma decision")
     out = {}
     for (bw, bh) in _as_shapes(sizes):
         ny, nx = h // bh, w // bw
@@ -229,7 +363,7 @@ def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                                             lfnst_enabled=lfnst, h=bh,
                                             isp_enabled=isp)
     if _tt_descriptors(sizes):
-        raise _slice2("TT middle-child planes (MTT)")
+        raise _slice2c("TT middle-child planes (MTT)")
     return out
 
 
@@ -247,13 +381,13 @@ def _pack_results(out, sizes):
     return torch.cat(parts)
 
 
-def _check_options(lossless, with_chroma, isp):
-    if not lossless:
-        raise _slice2("lossy search (lossless=False)")
+def _check_options(lossless, lfnst, with_chroma, isp):
     if with_chroma:
-        raise _slice2("the device chroma decision")
-    if isp:
-        raise _slice2("ISP")
+        raise _slice2b("the device chroma decision (CCLM)")
+    if isp and not lossless:
+        raise _slice2c("ISP")
+    if lfnst and not lossless:
+        raise _slice2b("LFNST")
 
 
 def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
@@ -263,7 +397,7 @@ def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
     """All candidate sizes of one frame → ONE packed int32 vector on the
     planes' device.  planes_vec: pack_planes(y) as a tensor.  Unpack with
     unpack_results."""
-    _check_options(lossless, with_chroma, isp)
+    _check_options(lossless, lfnst, with_chroma, isp)
     y, _, _ = _split_planes(planes_vec, w, h, False)
     return _pack_results(_eval_all_sizes_impl(y, sizes, int(qp), bit_depth,
                                               w, h, lossless, lfnst), sizes)
@@ -276,7 +410,7 @@ def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
                           isp: bool = False) -> torch.Tensor:
     """[F] frames (or tile columns) → [F, per-frame packed length] int32.
     The JAX program's vmap over frames is a frame loop here."""
-    _check_options(lossless, with_chroma, isp)
+    _check_options(lossless, lfnst, with_chroma, isp)
     y, _, _ = _split_planes(planes_vec, w, h, False, f)
     return torch.stack([
         _pack_results(_eval_all_sizes_impl(y[i], sizes, int(qp), bit_depth,
@@ -312,7 +446,7 @@ def rdo_partition_dispatch(y_plane, qp: int, bit_depth: int = 8,
     h, w = y_plane.shape
     assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
     if mtt:
-        raise _slice2("MTT")
+        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     with_chroma = chroma_planes is not None
     vec_dev = _to_device(pack_planes(y_plane, *(chroma_planes or (None, None))),
@@ -339,7 +473,7 @@ def rdo_partition_frames(y_planes, qp: int, bit_depth: int = 8,
     h, w = y_planes[0].shape
     assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
     if mtt:
-        raise _slice2("MTT")
+        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     nf = len(y_planes)
     with_chroma = chroma_planes is not None
@@ -370,12 +504,12 @@ def rdo_partition_tiled(y_plane: np.ndarray, tiles, qp: int,
     (split_map, leaf_map, leaves)."""
     h, w = y_plane.shape
     if mtt:
-        raise _slice2("MTT")
+        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     widths = [tx1 - tx0 for tx0, tx1 in tiles]
     with_chroma = chroma_planes is not None
     if with_chroma:
-        raise _slice2("the device chroma decision")
+        raise _slice2b("the device chroma decision (CCLM)")
     if tile_results is None:
         if len(set(widths)) == 1:
             wt = widths[0]

@@ -19,7 +19,13 @@ populated; QT-only round-1 paths are all square.
 """
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import numpy as np
+import torch
+
+from vvc_torch import ops
 
 from vvc_torch.common.types import MAX_TR_DYNAMIC_RANGE
 from vvc_torch.rom.transform_mats import (QUANT_SCALES, INV_QUANT_SCALES,
@@ -80,3 +86,169 @@ def dequant_np(level: np.ndarray, qp: int, bit_depth: int = 8) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Batched JAX versions ([N, H, W], all blocks same size & qp for one call).
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Batched torch versions ([N, H, W], all blocks same size & qp for one call)
+# — ports of vvc/kernels/quant.py:87,106, int32 arithmetic like the
+# reference's (arithmetic shifts, the _DEQ_GUARD clamp, intra offset 171).
+# ---------------------------------------------------------------------------
+
+
+def _quant_params(h: int, w: int, qp: int, bit_depth: int, intra: bool):
+    tshift = transform_shift(_log2(w), _log2(h), bit_depth)
+    rect = (_log2(w) + _log2(h)) & 1
+    qbits = QUANT_SHIFT + qp // 6 + tshift
+    scale = int((QUANT_SCALES_RECT if rect else QUANT_SCALES)[qp % 6])
+    offset = (171 if intra else 85) << (qbits - 9)
+    return scale, offset, qbits
+
+
+def _dequant_params(h: int, w: int, qp: int, bit_depth: int):
+    tshift = transform_shift(_log2(w), _log2(h), bit_depth)
+    shift = IQUANT_SHIFT - tshift
+    rect = (_log2(w) + _log2(h)) & 1
+    scale = int((INV_QUANT_SCALES_RECT if rect else INV_QUANT_SCALES)[qp % 6])
+    return scale, qp // 6, shift
+
+
+def quant_batch(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
+                intra: bool = True) -> torch.Tensor:
+    """[N,H,W] int32 coefficients → int32 levels (plain torch, any device;
+    the RDO's device pass fuses it into `quant_rate`)."""
+    n, h, w = coeff.shape
+    scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, intra)
+    c = coeff.to(torch.int32)
+    level = ((c.abs() * scale + offset) >> qbits).clamp(0, 32767)
+    return (torch.sign(c) * level).to(torch.int32)
+
+
+def dequant_batch(level: torch.Tensor, qp: int,
+                  bit_depth: int = 8) -> torch.Tensor:
+    """[N,H,W] int32 levels → int32 coefficients, 16-bit clipped."""
+    n, h, w = level.shape
+    scale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
+    g = _DEQ_GUARD >> sh6
+    lv = (level.to(torch.int32) * scale).clamp(-g, g) << sh6
+    if shift > 0:
+        c = (lv + (1 << (shift - 1))) >> shift
+    else:
+        c = lv << (-shift)
+    return c.clamp(-32768, 32767).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Float32 block sums in the order XLA-CPU's fused RDO program uses.
+#
+# vvc's `jnp.sum(x, axis=(1, 2))` over [M, S, S] float32 inside the jitted
+# eval_blocks is a reduction LLVM vectorises 8 lanes wide (reassociation
+# allowed), so the last bits of every rate (a sum of non-integer level
+# bits) follow its order, read from the optimised IR of that program:
+#   S = 8, 16, 32: for each row v, lanes k = 0..7 take the row's parts
+#     P_p = x[v, 8p:8p+8]; the running sum s joins lane 0 of P_0; the
+#     parts are combined as R = P_p + R for p = 1 .. S/8-1; then
+#     s = ((R0+R4)+(R2+R6)) + ((R1+R5)+(R3+R7)).
+#   S = 64: the reduction is split into 32×32 windows, each summed
+#     sequentially row-major from 0; then (W00 + W01) + (W10 + W11).
+# ---------------------------------------------------------------------------
+
+
+def _tree8(r: torch.Tensor) -> torch.Tensor:
+    """XLA's horizontal add of 8 lanes (last axis)."""
+    return (((r[..., 0] + r[..., 4]) + (r[..., 2] + r[..., 6]))
+            + ((r[..., 1] + r[..., 5]) + (r[..., 3] + r[..., 7])))
+
+
+def xla_block_sum(x: torch.Tensor, sse: bool = False) -> torch.Tensor:
+    """[M, S, S] float32 → [M] float32, summed in XLA-CPU's order.  The
+    8×8 SSE reduction is vectorised the other way round: lane v sums row v
+    left to right, then the 8 lanes meet in the same halving tree."""
+    m, s, s2 = x.shape
+    assert s == s2 and s in (8, 16, 32, 64), x.shape
+    x = x.to(torch.float32)
+    if sse and s == 8:
+        acc = x[:, :, 0]
+        for j in range(1, 8):
+            acc = acc + x[:, :, j]
+        return _tree8(acc)
+    if s == 64:
+        win = x.reshape(m, 2, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(
+            m, 2, 2, 1024)
+        acc = torch.zeros((m, 2, 2), dtype=torch.float32, device=x.device)
+        for i in range(1024):
+            acc = acc + win[..., i]
+        return (acc[:, 0, 0] + acc[:, 0, 1]) + (acc[:, 1, 0] + acc[:, 1, 1])
+    parts = x.reshape(m, s, s // 8, 8)
+    lanes = parts[:, :, 0, :]
+    for p in range(1, s // 8):
+        lanes = parts[:, :, p, :] + lanes     # lanes 1..7: no running sum
+    tot = torch.zeros((m,), dtype=torch.float32, device=x.device)
+    for v in range(s):
+        lane0 = tot + parts[:, v, 0, 0]
+        for p in range(1, s // 8):
+            lane0 = parts[:, v, p, 0] + lane0
+        r = torch.cat([lane0[:, None], lanes[:, v, 1:]], dim=1)
+        tot = _tree8(r)
+    return tot
+
+
+# ---------------------------------------------------------------------------
+# Fused quantise → level rate → dequantise (the RDO's device pass)
+# ---------------------------------------------------------------------------
+
+
+def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
+    """Plain twin of the `quant_rate` kernel: the composition of
+    quant_batch (intra), level_bits and dequant_batch, with the rate summed
+    per block in XLA's order.  → (levels, rate [N] f32, dequantised)."""
+    from vvc_torch.cabac.rates import level_bits
+    lev = quant_batch(coeff, qp, bit_depth, intra=True)
+    rate = xla_block_sum(level_bits(lev.abs()))
+    return lev, rate, dequant_batch(lev, qp, bit_depth)
+
+
+@lru_cache(maxsize=None)
+def _rate_tables(device: str):
+    from vvc_torch.cabac.rates import LEVEL_BITS_TABLE
+    from vvc_torch.rom.log_table import xla_log_f32
+    return (torch.from_numpy(xla_log_f32().copy()).to(device),
+            torch.from_numpy(LEVEL_BITS_TABLE.copy()).to(device))
+
+
+def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int):
+    from vvc_torch.cabac.rates import log_scale_f32
+    ops.check_cuda_i32("quant_rate", coeff)
+    n, h, w = coeff.shape
+    if h != w or w not in (8, 16, 32, 64):
+        raise ValueError(f"quant_rate: unsupported block {h}x{w}")
+    scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, True)
+    dscale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
+    if shift <= 0:
+        raise ValueError("quant_rate: dequant shift must be positive")
+    log_tab, base_tab = _rate_tables(str(coeff.device))
+    lev = torch.empty_like(coeff)
+    deq = torch.empty_like(coeff)
+    rate = torch.empty((n,), dtype=torch.float32, device=coeff.device)
+    if n == 0:
+        return lev, rate, deq
+    fn = ops.lib("quant_rate").quant_rate_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(coeff.data_ptr(), log_tab.data_ptr(), base_tab.data_ptr(),
+             lev.data_ptr(), deq.data_ptr(), rate.data_ptr(), n, w,
+             scale, offset, qbits, dscale, sh6, shift,
+             float(log_scale_f32()), ops.stream_ptr(coeff))
+    ops.launched("quant_rate", err)
+    return lev, rate, deq
+
+
+def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
+    """[N,S,S] int32 coefficients → (levels [N,S,S] i32, rate [N] f32,
+    dequantised [N,S,S] i32).  One pass of vvc's quant_batch,
+    level_bits_jnp + sum and dequant_batch (vvc/kernels/quant.py:87,106,
+    vvc/cabac/rates.py:41).  CUDA tensor → vvc_torch/csrc/quant_rate.cu;
+    CPU tensor or `ops.plain()` → quant_rate_plain."""
+    if ops.use_kernel(coeff):
+        return _quant_rate_cuda(coeff, qp, bit_depth)
+    return quant_rate_plain(coeff, qp, bit_depth)

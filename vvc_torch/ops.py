@@ -1,10 +1,10 @@
 """Device resolution, CUDA kernel build/load and per-kernel launch counts.
 
 Kernels are CUDA C++ for Hopper (`vvc_torch/csrc/*.cu`), each with a plain
-C entry point.  `build()` compiles every source with its own `nvcc`
-process, all started together, into `vvc_torch/_build/` (a shared library
-per source, named by a hash of its text), and `lib(name)` loads one with
-ctypes.  The build happens at first use and reads only the package's own
+C entry point `<kernel>_launch`.  `build()` compiles every source with its
+own `nvcc` process, all started together, into `vvc_torch/_build/` (a
+shared library per source, named by a hash of its text), and `lib(name)`
+loads the library that holds kernel `name` with ctypes.  The build happens at first use and reads only the package's own
 sources.
 
 Each kernel wrapper (in `vvc_torch.kernels` / `vvc_torch.enc.rdo`):
@@ -33,11 +33,15 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 
-# kernel name -> CUDA source (one plain-C shared library each)
+# kernel name -> CUDA source (one plain-C shared library per source)
 SOURCES = {
     "ref_lines": "ref_lines.cu",
     "intra_pred_all": "intra_pred.cu",
     "satd": "satd.cu",
+    "transform_fwd": "transform.cu",
+    "transform_inv": "transform.cu",
+    "quant_rate": "quant_rate.cu",
+    "mip_pred_all": "mip.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -80,11 +84,11 @@ def use_kernel(t: torch.Tensor) -> bool:
     return t.is_cuda and not _plain.get()
 
 
-def _so_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as fh:
+def _so_path(source: str) -> str:
+    with open(os.path.join(CSRC, source), "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def _nvcc() -> str:
@@ -100,7 +104,8 @@ def build(verbose: bool = False) -> float:
     One nvcc process per source, all started together."""
     with _lock:
         t0 = time.perf_counter()
-        todo = [n for n in SOURCES if not os.path.exists(_so_path(n))]
+        todo = sorted(src for src in set(SOURCES.values())
+                      if not os.path.exists(_so_path(src)))
         if not todo:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -110,7 +115,7 @@ def build(verbose: bool = False) -> float:
             out = _so_path(name)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-                   os.path.join(CSRC, SOURCES[name])]
+                   os.path.join(CSRC, name)]
             procs.append((name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -131,12 +136,13 @@ def build(verbose: bool = False) -> float:
 
 def lib(name: str) -> ctypes.CDLL:
     """Load (building first if needed) the shared library of kernel `name`."""
-    if name not in _libs:
+    src = SOURCES[name]
+    if src not in _libs:
         build()
         with _lock:
-            if name not in _libs:
-                _libs[name] = ctypes.CDLL(_so_path(name))
-    return _libs[name]
+            if src not in _libs:
+                _libs[src] = ctypes.CDLL(_so_path(src))
+    return _libs[src]
 
 
 def launched(name: str, err: int) -> None:

@@ -1,10 +1,11 @@
-"""Native CABAC packer bindings (ctypes).
+"""Native host cores (ctypes): the CABAC packer and the reconstruction core.
 
-Builds cabac_core.cpp (a copy of vvc/packer/cabac_core.cpp) with g++ at
-first use into vvc_torch/_build/ (named by a hash of the source, so a
-changed source rebuilds) and loads it.  There is no fallback: a failed
-build raises.  The Python engine (vvc_torch.cabac.engine) stays the
-oracle the native engine is tested against.
+Builds cabac_core.cpp and recon_core.cpp (copies of vvc/packer's) with g++
+at first use into vvc_torch/_build/ (named by a hash of the source, so a
+changed source rebuilds) and loads them.  There is no fallback: a failed
+build raises.  The Python engine (vvc_torch.cabac.engine) and the numpy
+reconstruction (vvc_torch.model.recon) stay the oracles the native cores
+are tested against.
 """
 from __future__ import annotations
 
@@ -16,24 +17,60 @@ import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "cabac_core.cpp")
+_RSRC = os.path.join(_DIR, "recon_core.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 
 _lib = None
+_rlib = None
 _lock = threading.Lock()
 
 
-def _so_path() -> str:
-    with open(_SRC, "rb") as fh:
+def _load(src: str, stem: str) -> ctypes.CDLL:
+    """Build `src` with g++ unless a library of its exact text exists, then
+    load it.  Raises when the build or the load fails."""
+    with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"libcabac-{digest}.so")
+    so = os.path.join(_BUILD_DIR, f"lib{stem}-{digest}.so")
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                        "-o", tmp, src], check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
-def _build(so: str) -> None:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o",
-                    tmp, _SRC], check=True, capture_output=True, timeout=300)
-    os.replace(tmp, so)
+def recon_lib() -> ctypes.CDLL:
+    """The native reconstruction core, built on first use; raises if it
+    cannot be built or loaded."""
+    global _rlib
+    with _lock:
+        if _rlib is not None:
+            return _rlib
+        l = _load(_RSRC, "recon")
+        l.recon_init.argtypes = [ctypes.c_void_p] * 13
+        l.mip_init.argtypes = [ctypes.c_void_p]
+        l.lfnst_init.argtypes = [ctypes.c_void_p]
+        l.intra_filt_init.argtypes = [ctypes.c_void_p] * 2
+        l.depquant_init.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_double]
+        l.quant_depquant_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+        l.dequant_depquant_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        l.recon_leaves_v2.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        _rlib = l
+        return _rlib
 
 
 def lib() -> ctypes.CDLL:
@@ -43,10 +80,7 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        so = _so_path()
-        if not os.path.exists(so):
-            _build(so)
-        l = ctypes.CDLL(so)
+        l = _load(_SRC, "cabac")
         l.enc_create.restype = ctypes.c_void_p
         l.enc_destroy.argtypes = [ctypes.c_void_p]
         l.enc_bin.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

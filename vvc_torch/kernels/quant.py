@@ -84,11 +84,6 @@ def dequant_np(level: np.ndarray, qp: int, bit_depth: int = 8) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Batched JAX versions ([N, H, W], all blocks same size & qp for one call).
-# ---------------------------------------------------------------------------
-
-
-# ---------------------------------------------------------------------------
 # Batched torch versions ([N, H, W], all blocks same size & qp for one call)
 # — ports of vvc/kernels/quant.py:87,106, int32 arithmetic like the
 # reference's (arithmetic shifts, the _DEQ_GUARD clamp, intra offset 171).

@@ -78,11 +78,6 @@ def inv_transform_np(coeff: np.ndarray, bit_depth: int = 8,
 
 
 # ---------------------------------------------------------------------------
-# Batched JAX versions — same integer semantics, leading batch axis.
-# ---------------------------------------------------------------------------
-
-
-# ---------------------------------------------------------------------------
 # Batched torch versions — same integer semantics, leading batch axis.
 # ---------------------------------------------------------------------------
 

@@ -73,10 +73,9 @@ def test_quant_rate_matches_its_parts(size):
     from vvc_torch.kernels import quant as port
     coeff = _coeffs(size, 3 * size)
     for qp in (12, 32, 45):
-        lev, rate, deq = port.quant_rate(torch.from_numpy(coeff), qp, 8)
+        rate, deq = port.quant_rate(torch.from_numpy(coeff), qp, 8)
         want_l = np.asarray(ref.quant_batch(jnp.asarray(coeff), qp, 8,
                                             intra=True))
-        np.testing.assert_array_equal(lev.numpy(), want_l)
         np.testing.assert_array_equal(
             deq.numpy(), np.asarray(ref.dequant_batch(jnp.asarray(want_l),
                                                       qp, 8)))

@@ -134,6 +134,63 @@ def test_eval_blocks_top3_tie_keeps_lower_index(port):
     assert short == [0, 1, 67]
 
 
+@pytest.mark.parametrize("size, bit_depth", ((8, 10), (16, 10), (32, 8),
+                                             (64, 8)))
+def test_sse_above_2_24_bit_equal(port, monkeypatch, size, bit_depth):
+    """Blocks whose SSE reaches 2^24, where float32 partial sums round and
+    the port takes XLA's summation order.  At 16..64, binary-noise
+    originals over flat reference lines at QP 63 leave most of the noise
+    uncoded; eval_blocks must then be bit-equal to vvc's jitted program
+    (a sequential sum order breaks it).  At 8×8 no input we constructed
+    drives the fused program there: each coefficient's error stays below
+    0.67 of a quantiser step, so nearly all 64 would have to sit at that
+    limit at once.  The 8×8 order is held instead against vvc's jitted sum
+    of d·d on differences drawn directly, where the sequential order
+    differs."""
+    import torch
+    rng = np.random.default_rng(size)
+    mx = (1 << bit_depth) - 1
+    if size == 8:
+        d = rng.integers(-mx, mx + 1, (2000, 8, 8)).astype(np.int32)
+        df = jnp.asarray(d).astype(jnp.float32)
+        want = np.asarray(jax.jit(lambda x: jnp.sum(x * x, axis=(1, 2)))(df))
+        got = port._sse_f32(torch.from_numpy(d)).numpy()
+        exact = (d.astype(np.int64) ** 2).sum(axis=(1, 2))
+        assert (exact >= 1 << 24).sum() > 1000
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        seq = np.zeros(len(d), np.float32)
+        for v in (d.reshape(len(d), -1).astype(np.float32) ** 2).T:
+            seq = seq + v
+        assert (seq != want).any()
+        return
+    big = []
+    sse_f32 = port._sse_f32
+
+    def counted(d):
+        dl = d.to(torch.int64)
+        big.append(int(((dl * dl).sum(dim=(1, 2)) >= 1 << 24).sum()))
+        return sse_f32(d)
+
+    monkeypatch.setattr(port, "_sse_f32", counted)
+    n, small = 8, size <= 32
+    orig = (rng.integers(0, 2, (n, size, size)) * mx).astype(np.int32)
+    refs = np.repeat(rng.integers(0, mx + 1, (n, 1)), 4 * size + 3,
+                     axis=1).astype(np.int32)
+    fn = jax.jit(ref.eval_blocks, static_argnames=(
+        "size", "bit_depth", "try_mts", "lossless", "try_mip", "try_lfnst"))
+    want = fn(jnp.asarray(orig), jnp.asarray(refs), size=size, qp=63,
+              bit_depth=bit_depth, try_mts=small, lossless=False,
+              try_mip=small, try_lfnst=False)
+    got = port.eval_blocks(torch.from_numpy(orig), torch.from_numpy(refs),
+                           size, 63, bit_depth, try_mts=small,
+                           lossless=False, try_mip=small)
+    assert sum(big) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+
+
 @pytest.mark.parametrize("kw,match", [
     ({"lossless": False, "lfnst": True}, "slice 2b"),
     ({"lossless": False, "lfnst": False, "chroma_planes": "frame"},

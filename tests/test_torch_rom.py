@@ -16,7 +16,6 @@ import vvc.cabac.residual as ref_residual
 import vvc.enc.rdo as ref_rdo
 import vvc.kernels.intra as ref_intra
 import vvc.rom.intra_filters as ref_filt
-import vvc.hls.aps as ref_aps
 import vvc.rom.lfnst_mats as ref_lfnst
 import vvc.rom.mip_mats as ref_mip
 import vvc.rom.transform_mats as ref_tm
@@ -24,7 +23,6 @@ import vvc_torch.cabac.ctx as port_ctx
 import vvc_torch.cabac.rates as port_rates
 import vvc_torch.cabac.rates_ctx as port_rates_ctx
 import vvc_torch.cabac.residual as port_residual
-import vvc_torch.hls.aps as port_aps
 import vvc_torch.rom.intra_filters as port_filt
 import vvc_torch.rom.lfnst_mats as port_lfnst
 import vvc_torch.rom.log_table as port_log
@@ -101,20 +99,6 @@ def test_xla_log_table_regenerated_from_jnp():
     np.testing.assert_array_equal(
         (got * port_rates.log_scale_f32() / np.float32(2)).view(np.uint32),
         log2.view(np.uint32))
-
-
-def test_aps_writer_equal():
-    rng = np.random.default_rng(5)
-    luma = (rng.integers(-60, 60, (3, 12)), rng.integers(0, 4, 3),
-            rng.integers(0, 3, 25))
-    chroma = rng.integers(-60, 60, (6,))
-    cw = [int(v) for v in rng.integers(20, 60, 16)]
-    for args in ((3, luma, None), (7, None, chroma),
-                 (1, luma, chroma, chroma[:4], chroma[2:])):
-        assert port_aps.write_aps_alf(*args) == ref_aps.write_aps_alf(*args)
-    assert (port_aps.parse_aps(port_aps.write_aps_lmcs(2, cw))
-            == ref_aps.parse_aps(ref_aps.write_aps_lmcs(2, cw)))
-    assert port_aps.write_aps_lmcs(2, cw) == ref_aps.write_aps_lmcs(2, cw)
 
 
 def test_cabac_context_tables_equal():

@@ -4,7 +4,7 @@
 // vvc/kernels/quant.py:87 quant_batch (intra dead zone 171/512),
 // vvc/cabac/rates.py:41 level_bits_jnp (+ jnp.sum over the block) and
 // vvc/kernels/quant.py:106 dequant_batch.  Per coefficient c, in int32:
-//   level = sign(c)·min((|c|·scale + offset) >> qbits, 32767)
+//   level = sign(c)·min((|c|·scale + offset) >> qbits, 32767)   (not stored)
 //   bits  = fma(log(1 + over), 2/ln 2, base[min(|level|, 9)]),
 //           over = max(|level| - 9, 0)     (one rounding, as XLA's FMA)
 //   deq   = clip16(((clamp(level·dscale, ±2^29 >> sh6) << sh6)
@@ -22,7 +22,9 @@
 // One CTA per block; the S×S level bits sit in shared memory.  Lanes 1..7
 // of every row are summed in parallel; one thread then walks the rows
 // (lane 0 carries the running total); at S = 64 four threads walk the
-// windows.  Bound: bytes — 4 B read and 8 B written per coefficient.
+// windows.  The levels themselves are never written: the RD search reads
+// only the rate and the dequantised block, which both follow from them.  Bound:
+// bytes — 4 B read and 4 B written per coefficient, plus 4 B per block.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,7 +34,7 @@ constexpr int kMaxS = 64;
 __global__ void quant_rate_kernel(const int* __restrict__ coeff,
                                   const float* __restrict__ log_tab,
                                   const float* __restrict__ base_tab,
-                                  int* __restrict__ lev, int* __restrict__ deq,
+                                  int* __restrict__ deq,
                                   float* __restrict__ rate, int s, int scale,
                                   int offset, int qbits, int dscale, int sh6,
                                   int shift, float log_scale) {
@@ -48,7 +50,6 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
     const int a = abs(c);
     const int l = min(max((a * scale + offset) >> qbits, 0), 32767);
     const int level = c > 0 ? l : (c < 0 ? -l : 0);
-    lev[base + i] = level;
     const int al = abs(level);
     bits[i] = __fmaf_rn(__ldg(log_tab + max(al - 9, 0)), log_scale,
                         __ldg(base_tab + min(al, 9)));
@@ -101,7 +102,7 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
 }  // namespace
 
 extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
-                                 const float* base_tab, int* lev, int* deq,
+                                 const float* base_tab, int* deq,
                                  float* rate, int n, int s, int scale,
                                  int offset, int qbits, int dscale, int sh6,
                                  int shift, float log_scale, void* stream) {
@@ -111,7 +112,7 @@ extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
   if (n == 0) return 0;
   const int threads = s * s < 256 ? s * s : 256;
   quant_rate_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
-      coeff, log_tab, base_tab, lev, deq, rate, s, scale, offset, qbits,
+      coeff, log_tab, base_tab, deq, rate, s, scale, offset, qbits,
       dscale, sh6, shift, log_scale);
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,10 @@
 // banks); the other matrix reads go through the read-only cache, where
 // every CTA of the launch hits them, as broadcasts or coalesced rows.
 // Each thread computes whole output samples (a length-S dot product), so
-// no sum is split.  Bound: operations — 2·S MACs per output sample and
-// stage (S = 32: 64 int32 MACs per 8 bytes moved).
+// no sum is split.  Bound: bytes — 8 B moved per sample (4 read, 4
+// written).  The 2·S int32 MACs per sample and stage take less time than
+// those bytes at the card's peak rates for S ≤ 32, and most of a search's
+// samples are at those sizes, so its bound is the byte time.
 #include <cuda_runtime.h>
 
 namespace {

@@ -270,7 +270,7 @@ def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int):
     (vvc/enc/rdo.py rd_pass)."""
     th, tv = tr
     coeff = fwd_transform_batch(resi, bit_depth, th, tv)
-    _, rate, deq = quant_rate(coeff, qp, bit_depth)
+    rate, deq = quant_rate(coeff, qp, bit_depth)
     rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
     rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
     sse = _sse_f32(rec - pred - resi)

@@ -195,11 +195,12 @@ def xla_block_sum(x: torch.Tensor, sse: bool = False) -> torch.Tensor:
 def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
     """Plain twin of the `quant_rate` kernel: the composition of
     quant_batch (intra), level_bits and dequant_batch, with the rate summed
-    per block in XLA's order.  → (levels, rate [N] f32, dequantised)."""
+    per block in XLA's order.  → (rate [N] f32, dequantised [N,S,S] i32);
+    the levels are not returned, as the kernel does not write them."""
     from vvc_torch.cabac.rates import level_bits
     lev = quant_batch(coeff, qp, bit_depth, intra=True)
     rate = xla_block_sum(level_bits(lev.abs()))
-    return lev, rate, dequant_batch(lev, qp, bit_depth)
+    return rate, dequant_batch(lev, qp, bit_depth)
 
 
 @lru_cache(maxsize=None)
@@ -221,26 +222,25 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int):
     if shift <= 0:
         raise ValueError("quant_rate: dequant shift must be positive")
     log_tab, base_tab = _rate_tables(str(coeff.device))
-    lev = torch.empty_like(coeff)
     deq = torch.empty_like(coeff)
     rate = torch.empty((n,), dtype=torch.float32, device=coeff.device)
     if n == 0:
-        return lev, rate, deq
+        return rate, deq
     fn = ops.lib("quant_rate").quant_rate_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(coeff.data_ptr(), log_tab.data_ptr(), base_tab.data_ptr(),
-             lev.data_ptr(), deq.data_ptr(), rate.data_ptr(), n, w,
+             deq.data_ptr(), rate.data_ptr(), n, w,
              scale, offset, qbits, dscale, sh6, shift,
              float(log_scale_f32()), ops.stream_ptr(coeff))
     ops.launched("quant_rate", err)
-    return lev, rate, deq
+    return rate, deq
 
 
 def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
-    """[N,S,S] int32 coefficients → (levels [N,S,S] i32, rate [N] f32,
-    dequantised [N,S,S] i32).  One pass of vvc's quant_batch,
+    """[N,S,S] int32 coefficients → (rate [N] f32, dequantised [N,S,S]
+    i32).  One pass of vvc's quant_batch,
     level_bits_jnp + sum and dequant_batch (vvc/kernels/quant.py:87,106,
     vvc/cabac/rates.py:41).  CUDA tensor → vvc_torch/csrc/quant_rate.cu;
     CPU tensor or `ops.plain()` → quant_rate_plain."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--trace profile_trace.json] [--lossy]
+    python3 chip_profile.py [--trace profile_trace.json] [--lossy [2a|2b]]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -22,9 +22,10 @@ phase totals (thread-seconds).  serial against the two pooled runs says
 whether the pool's threads overlap the host work; pooled against
 pooled-profiled says what the profiler costs.
 
-With --lossy it is lossy All-Intra with MTS, MIP and deblocking through
-`Encoder.encode_frame`, one frame after the other, twice: profiled (the
-device's busy time and idle share as above) and unprofiled.
+With --lossy it is lossy All-Intra through `Encoder.encode_frame`, one
+frame after the other, twice: profiled (the device's busy time and idle
+share as above) and unprofiled.  --lossy 2b (the default) has MTS, MIP,
+LFNST, CCLM and deblocking on; --lossy 2a leaves LFNST and CCLM off.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -63,8 +64,9 @@ def busy_seconds(trace_path: str) -> tuple[float, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default="profile_trace.json")
-    ap.add_argument("--lossy", action="store_true",
-                    help="profile the lossy All-Intra path (encode_frame)")
+    ap.add_argument("--lossy", nargs="?", const="2b", choices=("2a", "2b"),
+                    help="profile a lossy All-Intra path (encode_frame): "
+                         "2b with LFNST and CCLM (default), or 2a")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -85,6 +87,8 @@ def main() -> int:
     packer.lib()
     frames = [synth_frame(W, H, t) for t in range(2)]
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
+    if args.lossy == "2b":
+        lossy.update(lfnst=True, cclm=True)
     if args.lossy:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
@@ -104,7 +108,8 @@ def main() -> int:
                 encode_sequence(fs, qp=32, lossless=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return {"run": name, "path": "lossy" if args.lossy else "lossless",
+        return {"run": name,
+                "path": f"lossy {args.lossy}" if args.lossy else "lossless",
                 "frames": len(frames),
                 "size": f"{W}x{H}", "wall_s": wall,
                 "frames_per_s": len(frames) / wall,

@@ -5,24 +5,28 @@
 
 Builds the port's CUDA kernels from vvc_torch/csrc with nvcc (sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's two main paths at 1920×1080, QP 32 — lossless All-Intra through
-`vvc_torch.enc.encoder.encode_sequence` (slice 1, two frames) and lossy
+port's three main paths at 1920×1080, QP 32 — lossless All-Intra through
+`vvc_torch.enc.encoder.encode_sequence` (slice 1, two frames), lossy
 All-Intra with MTS, MIP and deblocking through `Encoder.encode_frame`
-(slice 2a, two frames) — and checks what comes out:
+(slice 2a, two frames), and the same with LFNST and CCLM on (slice 2b,
+two frames) — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the seven kernels against its plain version on the card
+  3. each of the twelve kernels against its plain version on the card
      (exact equality; the quant_rate kernel's float rates bit for bit),
      at the main paths' shapes, with CUDA-event times per 1080p frame;
-  4. the 1080p search vectors, lossless and lossy, from the kernels
-     against the plain path's;
+  4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
+     kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
      stream starts with SPS and PPS, its three kernels' counts moved;
-  6. the lossy main path: every one of the seven kernels launched the
+  6. the 2a lossy main path: each of its seven kernels launched the
      expected number of times, PSNR-Y and bytes in range;
-  7. at 416×240, the kernel path's streams byte-equal to the plain path's,
-     lossless and lossy, single-tile and with 2 tile columns.
+  7. the 2b main path: each of the twelve kernels launched the expected
+     number of times, PSNR and bytes in range, LFNST leaves and CCLM
+     chroma modes counted;
+  8. at 416×240, the kernel path's streams byte-equal to the plain path's,
+     lossless, 2a and 2b, single-tile and with 2 tile columns.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -54,6 +58,14 @@ MTS_SIZES = (8, 16, 32)      # stage B (MTS) and MIP sizes
 LOSSY_LAUNCHES = {"ref_lines": 4, "intra_pred_all": 4, "satd": 7,
                   "transform_fwd": 16, "transform_inv": 16,
                   "quant_rate": 16, "mip_pred_all": 3}
+# slice 2b adds, per size: stage C (one DCT2 of the winner, then for each
+# LFNST index lfnst_fwd → quant_rate → lfnst_inv → transform_inv) and the
+# chroma decision (per plane: ref_lines, intra_pred_one for DM and
+# cclm_models for the 3 LM variants); luma_ds once per frame
+LOSSY_2B_LAUNCHES = dict(LOSSY_LAUNCHES, ref_lines=12, transform_fwd=20,
+                         transform_inv=24, quant_rate=24, lfnst_fwd=8,
+                         lfnst_inv=8, luma_ds=1, cclm_models=24,
+                         intra_pred_one=8)
 LOSSLESS_KERNELS = ("ref_lines", "intra_pred_all", "satd")
 
 
@@ -100,6 +112,19 @@ def ref_lines_read_bytes(h: int, w: int, xs, ys, size: int,
     return int(torch.unique(idx * 4 // sector).numel()) * sector
 
 
+def cclm_models_bytes(cclm, xs, ys, cs: int, ch: int, cw: int,
+                      variant: int, sector: int = 32) -> int:
+    """Bytes that one cclm_models launch must move: the distinct 32-B
+    sectors of the downsampled-luma and chroma planes (one layout, both
+    read) that hold the model points of the blocks with a neighbour —
+    neighbouring blocks share their row-above and left-column sectors —
+    plus xs, ys read and α, β written (16 B per block)."""
+    px, py, top_ok, left_ok = cclm._model_points(xs, ys, cs, ch, cw, variant)
+    idx = (py * cw + px)[top_ok | left_ok].reshape(-1)
+    sectors = int(torch.unique(idx * 4 // sector).numel())
+    return 2 * sectors * sector + 16 * xs.shape[0]
+
+
 def grid_xy(size: int, w: int, h: int, dev):
     ny, nx = h // size, w // size
     ys = (torch.arange(ny, dtype=torch.int32, device=dev) * size
@@ -120,7 +145,8 @@ def main() -> int:
     from vvc_torch.hls.ps import PPS, SPS
     from vvc_torch.io.nal import read_annexb
     from vvc_torch.io.synth import synth_frame
-    from vvc_torch.kernels import intra, mip, quant, satd, transform
+    from vvc_torch.kernels import (cclm, intra, lfnst, mip, quant, satd,
+                                   transform)
     from vvc_torch.packer import native_recon
     from vvc_torch.utils import perf
 
@@ -274,6 +300,36 @@ def main() -> int:
         return torch.floor((t @ th + 2.0 ** (s2 - 1)) / 2.0 ** s2
                            ).clamp(-32768, 32767)
 
+    def time_transform(fwd, x, want, th, tv, bd):
+        """Kernel, plain and float64-yardstick times of one transform
+        launch on x [M,S,S]; the yardstick checked against `want`."""
+        name = "transform_fwd" if fwd else "transform_inv"
+        fn = (transform.fwd_transform_batch if fwd
+              else transform.inv_transform_batch)
+        m, s = x.shape[0], x.shape[-1]
+        f = lambda: fn(x, bd, th, tv)
+        k_ms = cuda_ms(f)
+        with ops.plain():
+            p_ms = cuda_ms(f, iters=3, warmup=1)
+        add_time(name, k_ms, p_ms, 2 * m * s * s * 4 + 2 * s * s * 4,
+                 m * s * s * 2 * s * 2)
+        thm = transform._matrix(th, s, str(dev)).to(torch.float64)
+        tvm = transform._matrix(tv, s, str(dev)).to(torch.float64)
+        lib = lambda: f64_sandwich(fwd, x, thm, tvm, bd)
+        compare(name, lib().to(torch.int32), want)
+        stats[name]["library_ms"] = (stats[name]["library_ms"] or 0.0
+                                     ) + cuda_ms(lib, iters=3, warmup=1)
+
+    def time_quant(c, bd, row_lanes=False):
+        """Kernel and plain times of one quant_rate launch on c [M,S,S]."""
+        m, s = c.shape[0], c.shape[-1]
+        f = lambda: quant.quant_rate(c, 32, bd, row_lanes)
+        k_ms = cuda_ms(f)
+        with ops.plain():
+            p_ms = cuda_ms(f, iters=2, warmup=1)
+        add_time("quant_rate", k_ms, p_ms,
+                 2 * m * s * s * 4 + m * 4 + 32768 * 4 + 40, 16 * m * s * s)
+
     for bd in (8, 10):
         for s in SIZES:
             n = (H_HD // s) * (W_HD // s)
@@ -303,33 +359,9 @@ def main() -> int:
                 del cp, rp, dp, ip
                 if bd != 8:
                     continue
-                thm = transform._matrix(th, s, str(dev)).to(torch.float64)
-                tvm = transform._matrix(tv, s, str(dev)).to(torch.float64)
-                mat_bytes = 2 * s * s * 4
-                for name, fn, fwd, inp in (
-                        ("transform_fwd", transform.fwd_transform_batch,
-                         True, x),
-                        ("transform_inv", transform.inv_transform_batch,
-                         False, dk)):
-                    f = lambda: fn(inp, bd, th, tv)
-                    k_ms = cuda_ms(f)
-                    with ops.plain():
-                        p_ms = cuda_ms(f, iters=3, warmup=1)
-                    add_time(name, k_ms, p_ms, 2 * m * s * s * 4 + mat_bytes,
-                             m * s * s * 2 * s * 2)
-                    lib = lambda: f64_sandwich(fwd, inp, thm, tvm, bd)
-                    compare(name, lib().to(torch.int32),
-                            ck if fwd else ik)
-                    stats[name]["library_ms"] = (
-                        stats[name]["library_ms"] or 0.0) + cuda_ms(
-                            lib, iters=3, warmup=1)
-                f = lambda: quant.quant_rate(ck, 32, bd)
-                k_ms = cuda_ms(f)
-                with ops.plain():
-                    p_ms = cuda_ms(f, iters=2, warmup=1)
-                add_time("quant_rate", k_ms, p_ms,
-                         2 * m * s * s * 4 + m * 4 + 32768 * 4 + 40,
-                         16 * m * s * s)
+                time_transform(True, x, ck, th, tv, bd)
+                time_transform(False, dk, ik, th, tv, bd)
+                time_quant(ck, bd)
                 del ck, rk, dk, ik
             del resi_a, passes
             if s not in MTS_SIZES:
@@ -352,6 +384,162 @@ def main() -> int:
                          + 9 * 64 * 8 * 4,
                          n * (9 * 64 * 16 + 9 * s * s * 8))
             del refs
+    # the slice-2b kernels at the main path's shapes: stage C runs the
+    # LFNST pair on the winners' DCT2 coefficients ([N,S,S], both indices)
+    # at every size; the chroma decision runs luma_ds once per frame, and
+    # per size and chroma plane intra_pred_one for DM and cclm_models for
+    # the three LM variants on [N] blocks of S/2
+    lf = lfnst._kernels_dev(str(dev))
+    for bd in (8, 10):
+        for s in SIZES:
+            n = (H_HD // s) * (W_HD // s)
+            coeff = torch.from_numpy(rng.integers(
+                -32768, 32768, size=(n, s, s)).astype(np.int32)).to(dev)
+            coeff[: n // 2] //= 64
+            modes = torch.from_numpy(rng.integers(0, 76, n).astype(
+                np.int32)).to(dev)
+            g, t = lfnst._sets_batch(modes)
+            if bd == 8:
+                # stage C's own DCT2 of the winners' residuals ([N,S,S])
+                resi = (coeff >> 8).contiguous()
+                time_transform(True, resi, transform.fwd_transform_batch(
+                    resi, bd), 0, 0, bd)
+            for li in (1, 2):
+                sec = lfnst.fwd_lfnst_batch(coeff, modes, li)
+                with ops.plain():
+                    want = lfnst.fwd_lfnst_batch(coeff, modes, li)
+                compare("lfnst_fwd", sec, want)
+                inv = lfnst.inv_lfnst_batch(sec, modes, li)
+                with ops.plain():
+                    want = lfnst.inv_lfnst_batch(sec, modes, li)
+                compare("lfnst_inv", inv, want)
+                if s == 8:                     # stage C's 8×8 rate order
+                    rk, dk = quant.quant_rate(sec, 32, bd, True)
+                    with ops.plain():
+                        rp, dp = quant.quant_rate(sec, 32, bd, True)
+                    compare("quant_rate", dk, dp)
+                    compare("quant_rate", rk.view(torch.int32),
+                            rp.view(torch.int32))
+                del want
+                if bd != 8:
+                    continue
+                # stage C's quant_rate and inverse DCT2 on [N,S,S]
+                time_quant(sec, bd, s == 8)
+                time_transform(False, inv, transform.inv_transform_batch(
+                    inv, bd), 0, 0, bd)
+                b64 = lf[:, li - 1][g.long()].to(torch.float64)  # [N,16,64]
+
+                def lib_fwd():
+                    c8 = coeff[:, :8, :8]
+                    c8 = torch.where(t[:, None, None], c8.transpose(1, 2),
+                                     c8).reshape(n, 64, 1)
+                    y = torch.bmm(b64, c8.to(torch.float64))
+                    y = torch.floor((y + 32.0) / 64.0).clamp(-32768, 32767)
+                    out = torch.zeros((n, s, s), dtype=torch.float64,
+                                      device=dev)
+                    out[:, :4, :4] = y.reshape(n, 4, 4)
+                    return out
+
+                def lib_inv():
+                    y = sec[:, :4, :4].reshape(n, 1, 16).to(torch.float64)
+                    c8 = torch.floor((torch.bmm(y, b64) + 32.0) / 64.0
+                                     ).clamp(-32768, 32767).reshape(n, 8, 8)
+                    out = torch.zeros((n, s, s), dtype=torch.float64,
+                                      device=dev)
+                    out[:, :8, :8] = torch.where(t[:, None, None],
+                                                 c8.transpose(1, 2), c8)
+                    return out
+
+                for name, fn, inp, lib, want in (
+                        ("lfnst_fwd", lfnst.fwd_lfnst_batch, coeff, lib_fwd,
+                         sec),
+                        ("lfnst_inv", lfnst.inv_lfnst_batch, sec, lib_inv,
+                         inv)):
+                    f = lambda: fn(inp, modes, li)
+                    k_ms = cuda_ms(f)
+                    with ops.plain():
+                        p_ms = cuda_ms(f, iters=3, warmup=1)
+                    # bytes it must move: the 64 (forward) or 16 (inverse)
+                    # coefficients it reads, the mode, the 1 KB kernel of
+                    # each of the 4 sets, and the S×S block it writes
+                    n_in = 64 if name == "lfnst_fwd" else 16
+                    add_time(name, k_ms, p_ms,
+                             n * (n_in * 4 + 4 + s * s * 4) + 4 * 1024,
+                             n * 2 * 16 * 64)
+                    compare(name, lib().to(torch.int32), want)
+                    stats[name]["library_ms"] = (
+                        stats[name]["library_ms"] or 0.0) + cuda_ms(
+                            lib, iters=3, warmup=1)
+            del coeff, sec, inv
+        # luma downsample of one frame, then the chroma decision's models
+        # and DM prediction per size and plane
+        luma = torch.from_numpy(rng.integers(0, 1 << bd, size=(
+            H_HD, W_HD)).astype(np.int32)).to(dev)
+        ds = cclm.luma_ds_plane_dev(luma)
+        with ops.plain():
+            want = cclm.luma_ds_plane_dev(luma)
+        compare("luma_ds", ds, want)
+        if bd == 8:
+            f = lambda: cclm.luma_ds_plane_dev(luma)
+            k_ms = cuda_ms(f)
+            with ops.plain():
+                p_ms = cuda_ms(f)
+            add_time("luma_ds", k_ms, p_ms,
+                     H_HD * W_HD * 4 + H_HD * W_HD, 8 * H_HD * W_HD // 4)
+            wk = torch.tensor([[1.0, 2.0, 1.0], [1.0, 2.0, 1.0]],
+                              dtype=torch.float64, device=dev)[None, None]
+
+            def lib_ds():
+                x = torch.nn.functional.pad(
+                    luma.to(torch.float64)[None, None], (1, 1, 0, 0),
+                    mode="replicate")
+                y = torch.nn.functional.conv2d(x, wk, stride=2)[0, 0]
+                return torch.floor((y + 4.0) / 8.0)
+            compare("luma_ds", lib_ds().to(torch.int32), ds)
+            stats["luma_ds"]["library_ms"] = cuda_ms(lib_ds)
+        planes = [torch.from_numpy(rng.integers(0, 1 << bd, size=(
+            H_HD // 2, W_HD // 2)).astype(np.int32)).to(dev)
+            for _ in range(2)]
+        for s in SIZES:
+            cs = s // 2
+            cx, cy = grid_xy(s, W_HD, H_HD, dev)
+            cx, cy = cx >> 1, cy >> 1
+            n = cx.shape[0]
+            dm = torch.from_numpy(rng.integers(0, 67, n).astype(
+                np.int32)).to(dev)
+            for plane in planes:
+                for v in (1, 2, 3):
+                    got = cclm.derive_models_batch_dev(ds, plane, cx, cy, cs,
+                                                       bd, v)
+                    with ops.plain():
+                        want = cclm.derive_models_batch_dev(
+                            ds, plane, cx, cy, cs, bd, v)
+                    compare("cclm_models", got[0], want[0])
+                    compare("cclm_models", got[1], want[1])
+                    if bd == 8:
+                        f = lambda: cclm.derive_models_batch_dev(
+                            ds, plane, cx, cy, cs, bd, v)
+                        k_ms = cuda_ms(f)
+                        with ops.plain():
+                            p_ms = cuda_ms(f, iters=3, warmup=1)
+                        add_time("cclm_models", k_ms, p_ms,
+                                 cclm_models_bytes(cclm, cx, cy, cs,
+                                                   H_HD // 2, W_HD // 2, v),
+                                 n * 60)
+                refs = rdo.build_ref_lines_device(plane, cx, cy, cs, bd)
+                got = intra.predict_modes_batch(refs, dm, cs, bd)
+                with ops.plain():
+                    want = intra.predict_modes_batch(refs, dm, cs, bd)
+                compare("intra_pred_one", got, want)
+                if bd == 8:
+                    f = lambda: intra.predict_modes_batch(refs, dm, cs, bd)
+                    k_ms = cuda_ms(f)
+                    with ops.plain():
+                        p_ms = cuda_ms(f, iters=3, warmup=1)
+                    add_time("intra_pred_one", k_ms, p_ms,
+                             n * ((4 * cs + 3) * 4 + 4 + cs * cs * 4),
+                             16 * n * cs * cs)
+        del luma, ds, planes
     torch.cuda.synchronize()
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
@@ -364,21 +552,34 @@ def main() -> int:
     frames = [synth_frame(W_HD, H_HD, t) for t in range(2)]
     shapes = rdo._candidate_shapes(64, 8, False)
     vec = torch.from_numpy(rdo.pack_planes(frames[0].y)).to(dev)
-    for lossless in (True, False):
-        search = lambda: rdo.eval_all_sizes(vec, shapes, 32, 8, W_HD, H_HD,
-                                            lossless, False)
+    vec2b = torch.from_numpy(rdo.pack_planes(frames[0].y, frames[0].cb,
+                                             frames[0].cr)).to(dev)
+    for label, v, lossless, lfnst_on, chroma_on in (
+            ("lossless", vec, True, False, False),
+            ("lossy", vec, False, False, False),
+            ("2b", vec2b, False, True, True)):
+        search = lambda: rdo.eval_all_sizes(v, shapes, 32, 8, W_HD, H_HD,
+                                            lossless, lfnst_on, chroma_on)
         got = search()
         with ops.plain():
             want = search()
         check(torch.equal(got, want),
-              f"1080p search vector (lossless={lossless}): kernels != plain")
+              f"1080p search vector ({label}): kernels != plain")
         search_ms = cuda_ms(search, iters=3, warmup=1)
         with ops.plain():
             search_plain_ms = cuda_ms(search, iters=1, warmup=0)
-        print(f"[4] 1080p {'lossless' if lossless else 'lossy'} search "
-              f"vector ({got.numel()} int32) bit-equal to the plain path; "
-              f"one frame's search {search_ms:.3f} ms (plain "
-              f"{search_plain_ms:.3f} ms)", flush=True)
+        extra = ""
+        if chroma_on:
+            res = rdo.unpack_results(got.cpu().numpy(), shapes, W_HD, H_HD)
+            wins = {sh[0]: int((r[3] > 0).sum()) for sh, r in res.items()}
+            hist = np.bincount(np.concatenate(
+                [r[4].ravel() for r in res.values()]), minlength=4)
+            extra = (f"; stage C (LFNST) won in {wins} blocks by size; "
+                     f"chroma modes DM/LM/LM_L/LM_T {hist.tolist()}")
+        print(f"[4] 1080p {label} search vector ({got.numel()} int32) "
+              f"bit-equal to the plain path; one frame's search "
+              f"{search_ms:.3f} ms (plain {search_plain_ms:.3f} ms){extra}",
+              flush=True)
 
     # 5. the lossless main path (slice 1), two frames, counted
     perf.reset()
@@ -408,36 +609,65 @@ def main() -> int:
 
     # 6. the lossy main path (slice 2a), two frames, counted
     lossy_sps = dict(deblocking=True, mts_intra=True, mip=True)
-    enc = Encoder(SPS(width=W_HD, height=H_HD, **lossy_sps), PPS(init_qp=32))
-    perf.reset()
-    torch.cuda.synchronize()
-    ops.reset_counts()
-    t0 = time.perf_counter()
-    coded = [enc.encode_frame(f, poc) for poc, f in enumerate(frames)]
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = dict(ops.COUNTS)
-    for name, per_frame in LOSSY_LAUNCHES.items():
-        check(launches[name] == per_frame * len(frames),
-              f"{name}: {launches[name]} launches on the lossy main path, "
-              f"expected {per_frame * len(frames)}")
-    nbytes = 0
-    for (nals, rec, st6), f in zip(coded, frames):
-        check([n.nal_type for n in nals] == [8, 24],
-              f"lossy picture NALs {[n.nal_type for n in nals]}")
-        for a, b in ((f.y, rec.y), (f.cb, rec.cb), (f.cr, rec.cr)):
-            check(a.shape == b.shape and int(b.min()) >= 0
-                  and int(b.max()) <= 255, "lossy recon out of range")
-        check(30.0 < st6["psnr_y"] < 60.0, f"PSNR-Y {st6['psnr_y']}")
-        nbytes += sum(len(n.payload) + 2 for n in nals)
-    psnr_y = [round(float(c[2]["psnr_y"]), 4) for c in coded]
+    sps_2b = dict(lossy_sps, lfnst=True, cclm=True)
+
+    def lossy_path(sps_kw, expected):
+        enc = Encoder(SPS(width=W_HD, height=H_HD, **sps_kw),
+                      PPS(init_qp=32))
+        perf.reset()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        coded, leaves = [], []
+        for poc, f in enumerate(frames):
+            coded.append(enc.encode_frame(f, poc))
+            leaves += enc.last_leaves
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(ops.COUNTS)
+        for name in ops.COUNTS:
+            want_n = expected.get(name, 0) * len(frames)
+            check(launches[name] == want_n,
+                  f"{name}: {launches[name]} launches on the lossy main "
+                  f"path {sps_kw}, expected {want_n}")
+        nbytes = 0
+        for (nals, rec, st6), f in zip(coded, frames):
+            check([n.nal_type for n in nals] == [8, 24],
+                  f"lossy picture NALs {[n.nal_type for n in nals]}")
+            for a, b in ((f.y, rec.y), (f.cb, rec.cb), (f.cr, rec.cr)):
+                check(a.shape == b.shape and int(b.min()) >= 0
+                      and int(b.max()) <= 255, "lossy recon out of range")
+            for k in ("psnr_y", "psnr_cb", "psnr_cr"):
+                check(30.0 < st6[k] < 70.0, f"{k} {st6[k]}")
+            nbytes += sum(len(n.payload) + 2 for n in nals)
+        psnr = {k: [round(float(c[2][k]), 4) for c in coded]
+                for k in ("psnr_y", "psnr_cb", "psnr_cr")}
+        return leaves, elapsed, launches, nbytes, psnr, perf.report()
+
+    _, elapsed, launches, nbytes, psnr, phases = lossy_path(
+        lossy_sps, LOSSY_LAUNCHES)
     print(f"[6] lossy main path: 2 frames 1920x1080 AI QP32 (MTS, MIP, "
           f"deblocking) on {kind}: {nbytes} bytes, {elapsed:.2f} s, "
-          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y {psnr_y} dB; "
-          f"launches {launches}; phases (thread-seconds) "
-          f"{json.dumps(perf.report())}", flush=True)
+          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y {psnr['psnr_y']} "
+          f"dB; launches {launches}; phases (thread-seconds) "
+          f"{json.dumps(phases)}", flush=True)
 
-    # 7. kernel path byte-equal to the plain path at 416x240
+    # 7. the 2b main path (LFNST and CCLM on), two frames, counted; its
+    # counts are the ones the kernel table reports
+    leaves, elapsed, launches, nbytes, psnr, phases = lossy_path(
+        sps_2b, LOSSY_2B_LAUNCHES)
+    n_lfnst = sum(1 for l in leaves if l.lfnst)
+    cm_hist = np.bincount([l.chroma_mode for l in leaves],
+                          minlength=4).tolist()
+    print(f"[7] 2b main path: 2 frames 1920x1080 AI QP32 (MTS, MIP, LFNST, "
+          f"CCLM, deblocking) on {kind}: {nbytes} bytes, {elapsed:.2f} s, "
+          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y/Cb/Cr "
+          f"{psnr['psnr_y']} / {psnr['psnr_cb']} / {psnr['psnr_cr']} dB; "
+          f"{len(leaves)} leaves, {n_lfnst} with LFNST, chroma modes "
+          f"DM/LM/LM_L/LM_T {cm_hist}; launches {launches}; phases "
+          f"(thread-seconds) {json.dumps(phases)}", flush=True)
+
+    # 8. kernel path byte-equal to the plain path at 416x240
     small = [synth_frame(416, 240, t) for t in range(2)]
     for kw in ({}, {"num_tile_cols": 2}):
         a = encode_sequence(small, qp=32, lossless=True, **kw)[0]
@@ -445,17 +675,21 @@ def main() -> int:
             b = encode_sequence(small, qp=32, lossless=True, **kw)[0]
         check(a == b, f"416x240 lossless {kw}: kernel stream != plain stream")
         pps = PPS(init_qp=32, num_tile_cols=kw.get("num_tile_cols", 1))
-        sps = SPS(width=416, height=240, **lossy_sps)
-        a = [n.payload for poc, f in enumerate(small)
-             for n in Encoder(sps, pps).encode_frame(f, poc)[0]]
-        with ops.plain():
-            b = [n.payload for poc, f in enumerate(small)
+        sizes = []
+        for label, sps_kw in (("2a", lossy_sps), ("2b", sps_2b)):
+            sps = SPS(width=416, height=240, **sps_kw)
+            a = [n.payload for poc, f in enumerate(small)
                  for n in Encoder(sps, pps).encode_frame(f, poc)[0]]
-        check(a == b, f"416x240 lossy {kw}: kernel stream != plain stream")
-        print(f"[7] 416x240 {kw or 'single tile'}: lossless and lossy "
-              f"({sum(map(len, a))} bytes) kernel streams == plain streams",
+            with ops.plain():
+                b = [n.payload for poc, f in enumerate(small)
+                     for n in Encoder(sps, pps).encode_frame(f, poc)[0]]
+            check(a == b, f"416x240 {label} {kw}: kernel stream != plain "
+                  f"stream")
+            sizes.append(f"{label} {sum(map(len, a))} bytes")
+        print(f"[8] 416x240 {kw or 'single tile'}: lossless, "
+              f"{', '.join(sizes)}: kernel streams == plain streams",
               flush=True)
-    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -465,7 +699,12 @@ def main() -> int:
            "transform_inv": "vvc/kernels/transform.py:94",
            "quant_rate": "vvc/kernels/quant.py:87,106; "
                          "vvc/cabac/rates.py:41",
-           "mip_pred_all": "vvc/kernels/mip.py:112"}
+           "mip_pred_all": "vvc/kernels/mip.py:112",
+           "lfnst_fwd": "vvc/kernels/lfnst.py:94",
+           "lfnst_inv": "vvc/kernels/lfnst.py:109",
+           "luma_ds": "vvc/kernels/cclm.py:173",
+           "cclm_models": "vvc/kernels/cclm.py:187",
+           "intra_pred_one": "vvc/kernels/intra.py:878"}
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k], "launches": launches[k],

@@ -128,7 +128,114 @@ def test_lossy_search_vector_equal_plain(dev, qp):
     w, h = 416, 240
     shapes = rdo._candidate_shapes(64, 8, False)
     vec = torch.from_numpy(rdo.pack_planes(synth_frame(w, h, 1).y)).to(dev)
+    ops.reset_counts()
     got, want = _both(rdo.eval_all_sizes, vec, shapes, qp, 8, w, h, False,
                       False)
+    assert torch.equal(got, want)
+    # the seven kernels of slice 2a ran; LFNST and chroma ones did not
+    lossy_2a = ("ref_lines", "intra_pred_all", "satd", "transform_fwd",
+                "transform_inv", "quant_rate", "mip_pred_all")
+    assert all((ops.COUNTS[k] > 0) == (k in lossy_2a) for k in ops.COUNTS)
+
+
+@pytest.mark.parametrize("size", (8, 16, 32, 64))
+def test_lfnst_equal_plain(dev, size):
+    """lfnst_fwd / lfnst_inv for every set, both transposes and MIP, and
+    quant_rate's 8×8 row-lanes rate order of the LFNST stage."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import lfnst, quant
+    rng = np.random.default_rng(size + 5)
+    n = 600
+    coeff = torch.from_numpy(rng.integers(-32768, 32768, (n, size, size))
+                             .astype(np.int32)).to(dev)
+    coeff[: n // 2] //= 64
+    modes = torch.from_numpy(rng.integers(0, 76, n).astype(np.int32)).to(dev)
+    before = dict(ops.COUNTS)
+    for li in (1, 2):
+        sec, want = _both(lfnst.fwd_lfnst_batch, coeff, modes, li)
+        assert torch.equal(sec, want)
+        got, want = _both(lfnst.inv_lfnst_batch, sec, modes, li)
+        assert torch.equal(got, want)
+        if size == 8:
+            got, want = _both(quant.quant_rate, sec, 22, 8, True)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32))
+            assert torch.equal(got[1], want[1])
+    assert ops.COUNTS["lfnst_fwd"] == before["lfnst_fwd"] + 2
+    assert ops.COUNTS["lfnst_inv"] == before["lfnst_inv"] + 2
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_cclm_kernels_equal_plain(dev, bit_depth):
+    """luma_ds on a frame and a tile plane; cclm_models for the three
+    variants at every chroma size, frame edges and coarse (tied) luma."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import cclm
+    rng = np.random.default_rng(bit_depth)
+    mx = (1 << bit_depth) - 1
+    before = dict(ops.COUNTS)
+    for h, w in ((96, 160), (96, 64)):
+        luma = torch.from_numpy(rng.integers(0, mx + 1, (h, w))
+                                .astype(np.int32)).to(dev)
+        ds, want = _both(cclm.luma_ds_plane_dev, luma)
+        assert torch.equal(ds, want)
+    ds[:8] //= 64
+    chroma = torch.from_numpy(rng.integers(0, mx + 1, tuple(ds.shape))
+                              .astype(np.int32)).to(dev)
+    for cs in (4, 8, 16, 32):
+        xs = torch.from_numpy(rng.integers(0, 32, 300).astype(np.int32)
+                              ).to(dev)
+        ys = torch.from_numpy(rng.integers(0, 48, 300).astype(np.int32)
+                              ).to(dev)
+        xs[:20] = 0
+        ys[10:30] = 0
+        for v in (1, 2, 3):
+            got, want = _both(cclm.derive_models_batch_dev, ds, chroma, xs,
+                              ys, cs, bit_depth, v)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    assert ops.COUNTS["luma_ds"] == before["luma_ds"] + 2
+    assert ops.COUNTS["cclm_models"] == before["cclm_models"] + 12
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+@pytest.mark.parametrize("size", (4, 8, 16, 32))
+def test_intra_pred_one_equal_plain(dev, size, bit_depth):
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import intra
+    rng = np.random.default_rng(size * bit_depth)
+    modes = np.concatenate([np.arange(67), rng.integers(0, 67, 200),
+                            [-2, 67, 80]]).astype(np.int32)
+    refs = torch.from_numpy(rng.integers(0, 1 << bit_depth,
+                                         (len(modes), 4 * size + 3))
+                            .astype(np.int32)).to(dev)
+    refs[:10] = refs[:10, :1]
+    before = ops.COUNTS["intra_pred_one"]
+    got, want = _both(intra.predict_modes_batch, refs,
+                      torch.from_numpy(modes).to(dev), size, bit_depth)
+    assert torch.equal(got, want)
+    assert ops.COUNTS["intra_pred_one"] == before + 1
+
+
+@pytest.mark.parametrize("cols", (1, 2))
+def test_2b_search_vector_equal_plain(dev, cols):
+    """The 2b search (LFNST and the chroma decision) at 416×240, one frame
+    or two tile columns stacked as frames."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import rdo
+    from vvc_torch.io.synth import synth_frame
+    w, h = 416 // cols, 240
+    shapes = rdo._candidate_shapes(64, 8, False)
+    f = synth_frame(416, h, 2)
+    cut = lambda p, k: np.stack([p[:, i * k:(i + 1) * k] for i in range(cols)])
+    vec = torch.from_numpy(rdo.pack_planes(cut(f.y, w), cut(f.cb, w // 2),
+                                           cut(f.cr, w // 2))).to(dev)
+    ops.reset_counts()
+    got, want = _both(rdo.eval_all_sizes_frames, vec, shapes, 32, 8, w, h,
+                      cols, False, True, True)
     assert torch.equal(got, want)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS)

@@ -1,9 +1,9 @@
 """The port's encoder (vvc_torch.enc.encoder) against vvc's: lossless
 All-Intra streams (encode_sequence) and lossy All-Intra pictures with MTS,
-MIP and deblocking (Encoder.encode_frame) are byte-equal, single-tile and
-with 2 tile columns, the reconstructions are equal, and vvc's decoder
-decodes them with every picture hash OK.  Options of later slices raise.
-Tolerance: exact (bytes and samples)."""
+MIP and deblocking (Encoder.encode_frame; slice 2b adds LFNST and CCLM)
+are byte-equal, single-tile and with 2 tile columns, the reconstructions
+are equal, and vvc's decoder decodes them with every picture hash OK.
+Options of later slices raise.  Tolerance: exact (bytes and samples)."""
 import numpy as np
 import pytest
 
@@ -16,10 +16,14 @@ from vvc.hls.write import write_pps, write_sps
 from vvc.io.nal import NalUnit, write_annexb
 from vvc.io.synth import synth_frame
 
+from tests.test_torch_rdo import (  # noqa: F401
+    _one_torch_thread, release_jax_programs)
+
 # torch and vvc_torch are imported inside the tests, so that a test worker
 # that never runs them does not load torch beside JAX.
 
 
+@pytest.mark.usefixtures("release_jax_programs")
 @pytest.mark.parametrize("w,h,kw", [(128, 64, {}),
                                     (256, 64, {"num_tile_cols": 2}),
                                     (128, 64, {"lmcs": True})],
@@ -45,19 +49,20 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw,match", [({"lossless": False}, "slice 2b"),
+@pytest.mark.parametrize("kw,match", [({"lossless": False}, "slice 3"),
                                       ({"lossless": True, "mode": "ra"},
                                        "inter slice"),
                                       ({"lossless": True, "target_kbps": 500},
-                                       "slice 2b"),
+                                       "slice 3"),
                                       ({"lossless": True, "wpp": True},
                                        "slice 2c")])
 def test_options_of_later_slices_raise(kw, match):
     from vvc_torch.enc.encoder import encode_sequence as port_encode
     from vvc_torch.io.synth import synth_frame as port_synth_frame
     frames = [port_synth_frame(64, 64, 0)]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         port_encode(frames, qp=32, device="cpu", **kw)
+    assert "slice 2b" not in str(err.value)
 
 
 # the lossy configuration of slice 2a: LFNST, CCLM, SAO and ALF stay at
@@ -65,24 +70,23 @@ def test_options_of_later_slices_raise(kw, match):
 LOSSY = dict(deblocking=True, mts_intra=True, mip=True)
 
 
-@pytest.mark.parametrize("cols,qp", [(1, 32), (2, 37)],
-                         ids=["single_tile", "two_tile_cols"])
-def test_lossy_ai_encode_frame_byte_equal_and_decodes(cols, qp):
+def _encode_frames_equal_and_decode(sps_kw, w, h, qp, cols, frames,
+                                    port_frames):
+    """Encode `frames` with vvc's Encoder and the port's; assert equal
+    NALs and recons, decode vvc's stream with MD5 checks; return the
+    port's stats and leaves per picture."""
     from vvc_torch.enc.encoder import Encoder
     from vvc_torch.hls.ps import PPS as PortPPS, SPS as PortSPS
-    from vvc_torch.io.synth import synth_frame as port_synth_frame
-    w, h = 128, 64
-    ref = RefEncoder(SPS(width=w, height=h, **LOSSY),
+    ref = RefEncoder(SPS(width=w, height=h, **sps_kw),
                      PPS(init_qp=qp, num_tile_cols=cols))
-    port = Encoder(PortSPS(width=w, height=h, **LOSSY),
+    port = Encoder(PortSPS(width=w, height=h, **sps_kw),
                    PortPPS(init_qp=qp, num_tile_cols=cols), device="cpu")
     nals = [NalUnit(NalUnitType.SPS, write_sps(ref.sps)),
             NalUnit(NalUnitType.PPS, write_pps(ref.pps))]
-    recons = []
-    for poc in range(2):
-        want, want_rec, _ = ref.encode_frame(synth_frame(w, h, poc), poc)
-        got, got_rec, stats = port.encode_frame(port_synth_frame(w, h, poc),
-                                                poc)
+    recons, out = [], []
+    for poc, (f, pf) in enumerate(zip(frames, port_frames)):
+        want, want_rec, _ = ref.encode_frame(f, poc)
+        got, got_rec, stats = port.encode_frame(pf, poc)
         assert [(n.nal_type, n.payload) for n in got] == [
             (n.nal_type, n.payload) for n in want]
         for a, b in ((want_rec.y, got_rec.y), (want_rec.cb, got_rec.cb),
@@ -91,15 +95,61 @@ def test_lossy_ai_encode_frame_byte_equal_and_decodes(cols, qp):
         assert stats["n_tiles"] == cols and 25 < stats["psnr_y"] < 60
         nals += want
         recons.append(got_rec)
+        out.append((stats, port.last_leaves))
     dec, info = decode_stream(write_annexb(nals))
-    assert len(info["hash_ok"]) == 2 and all(info["hash_ok"])
+    assert len(info["hash_ok"]) == len(frames) and all(info["hash_ok"])
     for r, d in zip(recons, dec):
-        np.testing.assert_array_equal(r.y, d.y)
+        for a, b in ((r.y, d.y), (r.cb, d.cb), (r.cr, d.cr)):
+            np.testing.assert_array_equal(a, b)
+    return out
 
 
-@pytest.mark.parametrize("option,match", [("lfnst", "slice 2b"),
-                                          ("cclm", "slice 2b"),
-                                          ("sao", "slice 3"),
+@pytest.mark.usefixtures("release_jax_programs")
+@pytest.mark.parametrize("cols,qp", [(1, 32), (2, 37)],
+                         ids=["single_tile", "two_tile_cols"])
+def test_lossy_ai_encode_frame_byte_equal_and_decodes(cols, qp):
+    from vvc_torch.io.synth import synth_frame as port_synth_frame
+    w, h = 128, 64
+    _encode_frames_equal_and_decode(
+        LOSSY, w, h, qp, cols, [synth_frame(w, h, poc) for poc in range(2)],
+        [port_synth_frame(w, h, poc) for poc in range(2)])
+
+
+# slice 2b: LFNST and CCLM on, as vvc's lossy encode_sequence SPS has them
+LOSSY_2B = dict(LOSSY, lfnst=True, cclm=True)
+
+
+@pytest.mark.usefixtures("release_jax_programs")
+@pytest.mark.parametrize("cols,qp", [(1, 32), (2, 32)],
+                         ids=["single_tile", "two_tile_cols"])
+def test_2b_encode_frame_byte_equal_and_decodes(cols, qp):
+    """Two 128×64 pictures with LFNST and the device chroma decision:
+    CCLM leaves (chroma modes 1..3) are coded and reconstructed as vvc
+    does."""
+    from vvc_torch.io.synth import synth_frame as port_synth_frame
+    w, h = 128, 64
+    out = _encode_frames_equal_and_decode(
+        LOSSY_2B, w, h, qp, cols, [synth_frame(w, h, poc) for poc in range(2)],
+        [port_synth_frame(w, h, poc) for poc in range(2)])
+    assert any(l.chroma_mode > 0 for _, leaves in out for l in leaves)
+
+
+@pytest.mark.usefixtures("release_jax_programs")
+def test_2b_encode_frame_smooth_lfnst_leaves():
+    """One 128×128 smooth picture at QP 37, where the search picks LFNST:
+    its leaves take the native recon's and the tree writer's LFNST paths
+    (lfnst_idx syntax, the inverse secondary transform)."""
+    from vvc.io.yuv import Frame
+    from vvc_torch.io.yuv import Frame as PortFrame
+    from tests.test_torch_rdo import smooth_frame
+    y, cb, cr = smooth_frame()
+    out = _encode_frames_equal_and_decode(
+        LOSSY_2B, 128, 128, 37, 1, [Frame(y, cb, cr, 8)],
+        [PortFrame(y.copy(), cb.copy(), cr.copy(), 8)])
+    assert any(l.lfnst > 0 for _, leaves in out for l in leaves)
+
+
+@pytest.mark.parametrize("option,match", [("sao", "slice 3"),
                                           ("alf", "slice 3")])
 def test_lossy_options_of_later_slices_raise(option, match):
     from vvc_torch.enc.encoder import Encoder

@@ -1,6 +1,6 @@
 """vvc_torch stands alone: after importing it and running tiny CPU
-encodes — lossless encode_sequence and a lossy Encoder.encode_frame with
-MTS, MIP and deblocking — no JAX module and no module of the JAX package
+encodes — lossless encode_sequence, a lossy Encoder.encode_frame with
+MTS, MIP and deblocking, and one with LFNST and CCLM too — no JAX module and no module of the JAX package
 `vvc` is loaded; and the entry points, given no device, ask for CUDA and
 raise where CUDA is absent instead of falling back to the CPU."""
 import json
@@ -25,6 +25,11 @@ sps = SPS(width=64, height=64, deblocking=True, mts_intra=True, mip=True)
 nals, rec, stats = Encoder(sps, PPS(init_qp=32), device="cpu").encode_frame(
     frames[0], 0)
 lossy_ok = bool(len(nals) == 2 and 20 < stats["psnr_y"] < 60)
+sps2b = SPS(width=64, height=64, deblocking=True, mts_intra=True, mip=True,
+            lfnst=True, cclm=True)
+nals, rec, stats = Encoder(sps2b, PPS(init_qp=32),
+                           device="cpu").encode_frame(frames[1], 1)
+lossy_ok = lossy_ok and bool(len(nals) == 2 and 20 < stats["psnr_y"] < 60)
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
@@ -53,7 +58,8 @@ def test_port_imports_no_jax_and_no_vvc():
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
-        "transform_inv", "quant_rate", "mip_pred_all")}
+        "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
+        "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one")}
     if not res["cuda"]:
         assert len(res["raised"]) == 2
         assert all("CUDA is not available" in r for r in res["raised"])

@@ -8,6 +8,8 @@ import pytest
 
 from vvc.kernels import mip as ref
 
+from tests.test_torch_rdo import _one_torch_thread  # noqa: F401
+
 # torch and vvc_torch are imported inside the tests, so that a test worker
 # that never runs them does not load torch beside JAX.
 

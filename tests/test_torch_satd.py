@@ -7,6 +7,8 @@ import pytest
 from vvc.kernels.satd import hadamard as ref_hadamard
 from vvc.kernels.satd import satd_batch as ref_satd
 
+from tests.test_torch_rdo import _one_torch_thread  # noqa: F401
+
 # torch and vvc_torch are imported inside the tests, so that a test worker
 # that never runs them does not load torch beside JAX.
 

@@ -8,8 +8,11 @@ import pytest
 
 from vvc.kernels import transform as ref
 
+from tests.test_torch_rdo import _one_torch_thread  # noqa: F401
+
 # torch and vvc_torch are imported inside the tests, so that a test worker
 # that never runs them does not load torch beside JAX.
+
 
 CASES = [(mts, s, bd) for bd in (8, 10) for s in (8, 16, 32, 64)
          for mts in range(len(ref.MTS_TR)) if s < 64 or mts == 0]

@@ -1,8 +1,12 @@
-// All 67 intra prediction modes of N square S x S blocks.
+// Intra prediction of N square S x S blocks: all 67 modes of each block
+// (`intra_pred_all`), or one mode per block (`intra_pred_one`).
 //
-// Replaces vvc/kernels/intra.py:671 predict_all_modes_batch (a jitted jnp
-// gather + multiply-add over static tables on the TPU).  Integer semantics
-// are those of the reference, exactly:
+// `intra_pred_all` replaces vvc/kernels/intra.py:671
+// predict_all_modes_batch, and `intra_pred_one` vvc/kernels/intra.py:878
+// predict_modes_batch (jitted jnp gathers + multiply-adds over static
+// tables on the TPU; the one-mode version serves the RD search's chroma DM
+// prediction at S = 4..32).  Integer semantics are those of the
+// reference, exactly:
 //   * planar and DC, each followed by the two-sided PDPC blend;
 //   * vertical family (modes 34..66): 4-tap filter over the reference
 //     line C with the stacked tables idx/co [33,4,S,S], then angular PDPC
@@ -11,14 +15,20 @@
 //     reversed line ct(i) = C[max(4S-i, 0)] and transposed — the transpose
 //     is index math on the table element, not a copy;
 //   * clip to [0, 2^bd - 1].
-// Right shifts of negative PDPC terms are arithmetic, as in jnp.
+// Right shifts of negative PDPC terms are arithmetic, as in jnp.  For a
+// mode outside 0..66 `intra_pred_one` does what predict_modes_batch's
+// clamped table rows do (mv = clip(m-34, 0, 32), mh = clip(34-m, 0, 32)):
+// m > 66 predicts as 66, m < 0 as 2; planar and DC read no table row.
 //
-// Grid (N, 67): one CTA per (block, mode), looping over the S*S samples.
-// The block's reference line (at most 259 ints) is staged in shared memory.
-// Bound: bytes — each output sample is written once (67*N*S*S*4 B per
-// size); the tables (<= 4.3 MB at S=64) stay resident in L2.  Fusing this
-// with the SATD that consumes it, so the [N,67,S,S] tensor never reaches
-// HBM, is the next step for speed.
+// `intra_pred_all`: grid (N, 67), one CTA per (block, mode);
+// `intra_pred_one`: grid N, one CTA per block with the block's own mode.
+// Each CTA stages its block's reference line (at most 259 ints) in shared
+// memory and loops over the S*S samples.  Bound: bytes — each output
+// sample is written once (67*N*S*S*4 B, or N*S*S*4 B, per size: the
+// chroma DM of a 1080p frame writes about 16 MB, 0.008 ms); the
+// tables (<= 4.3 MB at S=64) stay resident in L2.  Fusing the 67 modes
+// with the SATD that consumes them, so the [N,67,S,S] tensor never
+// reaches HBM, is the next step for speed.
 #include <cuda_runtime.h>
 
 #define MAX_LINE (4 * 64 + 3)
@@ -27,23 +37,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void intra_pred_all_kernel(
-    const int* __restrict__ refs, int s, int log2s, int maxv,
-    const int* __restrict__ idx, const int* __restrict__ co,
-    const int* __restrict__ pw, const int* __restrict__ pi,
-    const int* __restrict__ pdiff, int* __restrict__ out) {
-  __shared__ int c[MAX_LINE];
-  const int len = 4 * s + 3;
-  const int b = blockIdx.x;
-  const int m = blockIdx.y;
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    c[i] = refs[(long long)b * len + i];
-  __syncthreads();
-
+// Mode m of one block, from its reference line c (in shared memory), into
+// o[S*S]; every thread of the CTA takes part.
+__device__ void predict_block(const int* c, int m, int s, int log2s, int maxv,
+                              const int* __restrict__ idx,
+                              const int* __restrict__ co,
+                              const int* __restrict__ pw,
+                              const int* __restrict__ pi,
+                              const int* __restrict__ pdiff,
+                              int* __restrict__ o) {
   const int ss = s * s;
-  int* o = out + ((long long)b * 67 + m) * ss;
-
-  if (m <= 1) {
+  if (m == 0 || m == 1) {
     int dc = 0;
     if (m == 1) {
       // top[0..S-1] = C[2S+1..3S], left[0..S-1] = C[2S-1..S]
@@ -75,7 +79,8 @@ __global__ void intra_pred_all_kernel(
   }
 
   const bool vert = m >= 34;
-  const int pos = vert ? m - 34 : 34 - m;  // table position of vertical mode
+  // table position of the vertical mode, clamped as predict_modes_batch
+  const int pos = vert ? min(m - 34, 32) : min(34 - m, 32);
   const int* ti = idx + (long long)pos * 4 * ss;
   const int* tc = co + (long long)pos * 4 * ss;
   const int* tw = pw + (long long)pos * ss;
@@ -102,6 +107,39 @@ __global__ void intra_pred_all_kernel(
   }
 }
 
+__device__ __forceinline__ void stage_line(const int* __restrict__ refs,
+                                           int b, int len, int* c) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    c[i] = refs[(long long)b * len + i];
+  __syncthreads();
+}
+
+__global__ void intra_pred_all_kernel(
+    const int* __restrict__ refs, int s, int log2s, int maxv,
+    const int* __restrict__ idx, const int* __restrict__ co,
+    const int* __restrict__ pw, const int* __restrict__ pi,
+    const int* __restrict__ pdiff, int* __restrict__ out) {
+  __shared__ int c[MAX_LINE];
+  const int b = blockIdx.x;
+  const int m = blockIdx.y;
+  stage_line(refs, b, 4 * s + 3, c);
+  predict_block(c, m, s, log2s, maxv, idx, co, pw, pi, pdiff,
+                out + ((long long)b * 67 + m) * s * s);
+}
+
+__global__ void intra_pred_one_kernel(
+    const int* __restrict__ refs, const int* __restrict__ modes, int s,
+    int log2s, int maxv, const int* __restrict__ idx,
+    const int* __restrict__ co, const int* __restrict__ pw,
+    const int* __restrict__ pi, const int* __restrict__ pdiff,
+    int* __restrict__ out) {
+  __shared__ int c[MAX_LINE];
+  const int b = blockIdx.x;
+  stage_line(refs, b, 4 * s + 3, c);
+  predict_block(c, modes[b], s, log2s, maxv, idx, co, pw, pi, pdiff,
+                out + (long long)b * s * s);
+}
+
 extern "C" int intra_pred_all_launch(const int* refs, int n, int s, int log2s,
                                      int bit_depth, const int* idx,
                                      const int* co, const int* pw,
@@ -113,5 +151,20 @@ extern "C" int intra_pred_all_launch(const int* refs, int n, int s, int log2s,
   dim3 grid((unsigned)n, 67);
   intra_pred_all_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       refs, s, log2s, (1 << bit_depth) - 1, idx, co, pw, pi, pdiff, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int intra_pred_one_launch(const int* refs, const int* modes, int n,
+                                     int s, int log2s, int bit_depth,
+                                     const int* idx, const int* co,
+                                     const int* pw, const int* pi,
+                                     const int* pdiff, int* out,
+                                     void* stream) {
+  if (n == 0) return 0;
+  if (s > 64 || s < 4) return (int)cudaErrorInvalidValue;
+  const int threads = s * s < 256 ? s * s : 256;
+  intra_pred_one_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
+      refs, modes, s, log2s, (1 << bit_depth) - 1, idx, co, pw, pi, pdiff,
+      out);
   return (int)cudaGetLastError();
 }

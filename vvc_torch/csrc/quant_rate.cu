@@ -17,7 +17,9 @@
 //   S = 8..32: per row v, lanes k = 0..7 hold x[v][k] + x[v][8+k] + ...
 //     (part p added onto the sum of parts < p), the running total joins
 //     lane 0 first, then ((l0+l4)+(l2+l6)) + ((l1+l5)+(l3+l7));
-//   S = 64: four 32×32 windows summed row-major, (W00+W01)+(W10+W11).
+//   S = 64: four 32×32 windows summed row-major, (W00+W01)+(W10+W11);
+//   S = 8 with `row_lanes` (the order of the LFNST stage's rate): lane v
+//     sums row v left to right, then the same halving tree.
 //
 // One CTA per block; the S×S level bits sit in shared memory.  Lanes 1..7
 // of every row are summed in parallel; one thread then walks the rows
@@ -37,7 +39,8 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
                                   int* __restrict__ deq,
                                   float* __restrict__ rate, int s, int scale,
                                   int offset, int qbits, int dscale, int sh6,
-                                  int shift, float log_scale) {
+                                  int shift, float log_scale,
+                                  int row_lanes) {
   __shared__ float bits[kMaxS * kMaxS];
   __shared__ float lanes[32 * 8];
   __shared__ float win[4];
@@ -73,6 +76,22 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
                                    __fadd_rn(win[2], win[3]));
     return;
   }
+  if (row_lanes) {  // s == 8
+    if (threadIdx.x < 8) {
+      const float* row = bits + threadIdx.x * 8;
+      float acc = row[0];
+      for (int c = 1; c < 8; ++c) acc = __fadd_rn(acc, row[c]);
+      lanes[threadIdx.x] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const float* ln = lanes;
+      rate[blockIdx.x] = __fadd_rn(
+          __fadd_rn(__fadd_rn(ln[0], ln[4]), __fadd_rn(ln[2], ln[6])),
+          __fadd_rn(__fadd_rn(ln[1], ln[5]), __fadd_rn(ln[3], ln[7])));
+    }
+    return;
+  }
   const int parts = s >> 3;
   if (threadIdx.x < s * 8) {
     const int v = threadIdx.x >> 3, k = threadIdx.x & 7;
@@ -105,14 +124,15 @@ extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
                                  const float* base_tab, int* deq,
                                  float* rate, int n, int s, int scale,
                                  int offset, int qbits, int dscale, int sh6,
-                                 int shift, float log_scale, void* stream) {
+                                 int shift, float log_scale, int row_lanes,
+                                 void* stream) {
   if (n < 0 || !(s == 8 || s == 16 || s == 32 || s == 64) || shift <= 0 ||
-      qbits <= 0 || sh6 < 0 || sh6 > 29)
+      qbits <= 0 || sh6 < 0 || sh6 > 29 || (row_lanes && s != 8))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int threads = s * s < 256 ? s * s : 256;
   quant_rate_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
       coeff, log_tab, base_tab, deq, rate, s, scale, offset, qbits,
-      dscale, sh6, shift, log_scale);
+      dscale, sh6, shift, log_scale, row_lanes);
   return (int)cudaGetLastError();
 }

@@ -3,12 +3,12 @@
 Port of vvc/enc/encoder.py (`Encoder`, `encode_sequence`) with `device`
 threaded through to the RDO search, which is the only device work.  It
 runs lossless All-Intra (slice 1) and, through `Encoder.encode_frame`,
-lossy All-Intra with MTS, MIP and deblocking (slice 2a).  The options of
-later slices raise NotImplementedError naming their slice: LFNST and CCLM
-(2b), MTT, ISP, MRL, LMCS, dependent quantization and WPP (2c), SAO and
-ALF (3), inter (4).  `encode_sequence(lossless=False)` raises too: its SPS
-turns on LFNST, CCLM, SAO and ALF.  Everything after the search is the
-host code of vvc, copied.
+lossy All-Intra with MTS, MIP and deblocking (slice 2a), LFNST and the
+device chroma decision, CCLM (slice 2b).  The options of later slices
+raise NotImplementedError naming their slice: MTT, ISP, MRL, LMCS,
+dependent quantization and WPP (2c), SAO and ALF (3), inter (4).
+`encode_sequence(lossless=False)` raises too: its SPS turns on SAO and
+ALF.  Everything after the search is the host code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -57,7 +57,6 @@ def _not_in_slice(what: str, slice_name: str):
     return NotImplementedError(f"vvc_torch: {what} arrives with {slice_name}")
 
 
-_SLICE_2B = "slice 2b (LFNST and chroma)"
 _SLICE_2C = "slice 2c (MTT, ISP, MRL, LMCS, dependent quantization, WPP)"
 _SLICE_3 = "slice 3 (SAO and ALF statistics)"
 
@@ -65,12 +64,9 @@ _SLICE_3 = "slice 3 (SAO and ALF statistics)"
 def _check_sps(sps: SPS, pps: PPS) -> None:
     """Raise for every SPS/PPS option outside the ported slices."""
     if not sps.lossless:
-        for on, what, where in ((sps.lfnst, "LFNST", _SLICE_2B),
-                                (sps.cclm, "CCLM", _SLICE_2B),
-                                (sps.sao, "SAO", _SLICE_3),
-                                (sps.alf, "ALF", _SLICE_3)):
+        for on, what in ((sps.sao, "SAO"), (sps.alf, "ALF")):
             if on:
-                raise _not_in_slice(what, where)
+                raise _not_in_slice(what, _SLICE_3)
     for on, what in ((sps.max_mtt_depth_intra > 0, "MTT"),
                      (sps.isp, "ISP"), (sps.mrl, "MRL"),
                      (sps.lmcs, "LMCS"),
@@ -211,6 +207,10 @@ class Encoder:
         bd = sps.bit_depth
 
         from vvc_torch.utils import perf
+        # with CCLM the search decides each leaf's chroma mode on the
+        # device, as vvc's every intra path does (its host fallback,
+        # _decide_chroma_modes, serves inter slices only)
+        chroma = (frame.cb, frame.cr) if sps.cclm else None
         if rdo_result is not None:
             split_map, leaf_map, leaves = rdo_result
         elif pps.num_tile_cols > 1:
@@ -220,13 +220,13 @@ class Encoder:
                 frame.y, tile_columns(pps.num_tile_cols, sps.width,
                                       sps.ctu_size),
                 qp, bd, sps.ctu_size, sps.min_cu_size,
-                lossless=sps.lossless, lfnst=sps.lfnst,
+                lossless=sps.lossless, lfnst=sps.lfnst, chroma_planes=chroma,
                 mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp,
                 device=self.device)
         else:
             split_map, leaf_map, leaves = rdo_partition(
                 frame.y, qp, bd, sps.ctu_size, sps.min_cu_size,
-                lossless=sps.lossless, lfnst=sps.lfnst,
+                lossless=sps.lossless, lfnst=sps.lfnst, chroma_planes=chroma,
                 mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp,
                 device=self.device)
 
@@ -332,9 +332,9 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     Same signature as vvc.enc.encoder.encode_sequence plus `device`:
     None = CUDA (raises when CUDA is absent), "cpu" = the plain PyTorch
     path.  It runs mode="ai" with lossless=True; other modes, lossy
-    coding (whose SPS needs slices 2b and 3), rate control, the sharded
-    path and checkpointing raise NotImplementedError naming the slice
-    that brings them.
+    coding (whose SPS needs slice 3), rate control, the sharded path and
+    checkpointing raise NotImplementedError naming the slice that brings
+    them.
     recons/stats are returned in display (POC) order."""
     from vvc_torch.enc.gop import gop_order
 
@@ -342,14 +342,14 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         raise _not_in_slice(f"mode={mode!r}", "the inter slice")
     if not lossless:
         raise _not_in_slice(
-            "lossless=False (its SPS turns on LFNST, CCLM, SAO and ALF)",
-            f"{_SLICE_2B} and {_SLICE_3}; lossy All-Intra with MTS, MIP "
-            "and deblocking runs through Encoder.encode_frame")
+            "lossless=False (its SPS turns on SAO and ALF)",
+            f"{_SLICE_3}; lossy All-Intra with MTS, MIP, LFNST, CCLM and "
+            "deblocking runs through Encoder.encode_frame")
     if wpp:
         raise _not_in_slice("WPP row substreams", _SLICE_2C)
     if target_kbps > 0:
-        raise _not_in_slice("rate control", f"lossy encode_sequence, after "
-                            f"{_SLICE_2B} and {_SLICE_3}")
+        raise _not_in_slice("rate control",
+                            f"lossy encode_sequence, after {_SLICE_3}")
     if _precomputed_rdo is not None:
         raise _not_in_slice("the sharded search", "the multi-GPU slice")
     if checkpoint_path or resume:

@@ -12,7 +12,12 @@ Port of vvc/enc/rdo.py (reference: EncCu.cpp → xCompressCU; IntraSearch.cpp
      shortlist and runs full RD on it — forward transform
      (csrc/transform.cu), quantise + level rate + dequantise
      (csrc/quant_rate.cu), inverse transform, SSE — with DCT2 (stage A),
-     then the four other MTS pairs on the winner at 8..32 (stage B).  One
+     then the four other MTS pairs on the winner at 8..32 (stage B), then
+     the two LFNST kernels on the winner's DCT2 coefficients (stage C,
+     csrc/lfnst.cu).  With the chroma planes, each square block also
+     decides its chroma mode on the device (DM / LM / LM_L / LM_T by SSE
+     on the original samples: csrc/cclm.cu for the downsampled luma and
+     the linear models, csrc/intra_pred.cu `intra_pred_one` for DM).  One
      packed int32 vector per frame comes back.
   2. The host DP over the size pyramid (`_dp_backtrack`, copied unchanged)
      picks split/leaf per node.
@@ -23,9 +28,8 @@ is XLA's own (vvc_torch.cabac.rates.level_bits), block sums follow XLA's
 order (vvc_torch.kernels.quant.xla_block_sum) and `sse + λ·(rate + bits)`
 is rounded once, as the FMA XLA-CPU contracts it to.
 
-Options of later slices raise NotImplementedError naming the slice: LFNST
-and the device chroma decision (slice 2b), ISP and the MTT lattice
-(slice 2c).
+Options of later slices raise NotImplementedError naming the slice: ISP
+and the MTT lattice (slice 2c).
 
 Deviation from vvc: the JAX program also evaluates the TT middle-child
 planes (`_tt_descriptors`) for the QT-only candidate list, whose DP never
@@ -40,8 +44,12 @@ import numpy as np
 import torch
 
 from vvc_torch import ops
-from vvc_torch.kernels.intra import predict_all_modes_batch
-from vvc_torch.kernels.lfnst import lfnst_allowed
+from vvc_torch.kernels.cclm import (CCLM_SHIFT, derive_models_batch_dev,
+                                    luma_ds_plane_dev)
+from vvc_torch.kernels.intra import (predict_all_modes_batch,
+                                     predict_modes_batch)
+from vvc_torch.kernels.lfnst import (fwd_lfnst_batch, inv_lfnst_batch,
+                                     lfnst_allowed)
 from vvc_torch.kernels.mip import (K_MIP_MODES, MIP_MODE_BASE, mip_allowed,
                                    mip_predict_all_batch)
 from vvc_torch.kernels.quant import quant_rate, xla_block_sum
@@ -67,6 +75,9 @@ _MTS_BITS = (0.5, 2.0, 3.0, 4.0, 4.0)
 
 # approximate MIP signalling cost: mip_flag + TB(K) mode bits
 _MIP_BITS = 4.5
+
+# approximate lfnst_idx signalling cost (truncated unary, cMax 2)
+_LFNST_BITS = (0.0, 2.0, 3.0)
 
 # float32 bits of λ = 0.57·2^((qp−12)/3) and √λ for qp 0..63, as the JAX
 # reference computes them (XLA's exp2 differs from libm's in the last bit
@@ -113,10 +124,6 @@ def rd_lambda(qp: int) -> float:
 def _later(what: str, slice_name: str):
     return NotImplementedError(
         f"vvc_torch: {what} arrives with {slice_name}")
-
-
-def _slice2b(what: str):
-    return _later(what, "slice 2b (LFNST and chroma)")
 
 
 def _slice2c(what: str):
@@ -196,9 +203,8 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     whole cost; argmin keeps the first minimum like jnp.argmin.  Lossy:
     full RD on the stable top-3 shortlist with DCT2 (stage A), then the
     four other MTS pairs on the winning mode when try_mts (stage B, strict
-    `<`)."""
-    if try_lfnst:
-        raise _slice2b("LFNST")
+    `<`), then LFNST 1 and 2 on the winner's DCT2 coefficients when
+    try_lfnst (stage C, strict `<`; a win resets the MTS choice to 0)."""
     if h is not None and h != size:
         raise _slice2c("rectangular (MTT) shapes")
     lam, sqrt_lam = lambda_f32(qp)
@@ -245,7 +251,28 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
             best_cost = torch.where(better, c_mi, best_cost)
             best_mts = torch.where(better, torch.full_like(best_mts, mi),
                                    best_mts)
-    return best_cost, best_mode, best_mts, torch.zeros_like(best_mode)
+    best_lfnst = torch.zeros_like(best_mode)
+    if try_lfnst:
+        th0, tv0 = MTS_TR[0]
+        coeff0 = fwd_transform_batch(br, bit_depth, th0, tv0)
+        for li in (1, 2):
+            # XLA vectorises this stage's 8×8 rate sum across rows, as it
+            # does the 8×8 SSE (read from vvc's program; 16..64 as stage A)
+            rate, deq = quant_rate(fwd_lfnst_batch(coeff0, best_mode, li),
+                                   qp, bit_depth, row_lanes=size == 8)
+            rec_resi = inv_transform_batch(
+                inv_lfnst_batch(deq, best_mode, li), bit_depth, th0, tv0)
+            rec = (bp + rec_resi).clamp(0, (1 << bit_depth) - 1)
+            sse = _sse_f32(rec - bp - br)
+            # XLA folds the two constant bit costs into one before adding
+            # them to rate + mode bits (read from vvc's optimised HLO)
+            extra = np.float32(_MTS_BITS[0] + _LFNST_BITS[li])
+            c_li = _fma_f32(lam, (rate + bbits) + extra, sse)
+            better = c_li < best_cost
+            best_cost = torch.where(better, c_li, best_cost)
+            best_mts = torch.where(better, 0, best_mts)
+            best_lfnst = torch.where(better, li, best_lfnst)
+    return best_cost, best_mode, best_mts, best_lfnst
 
 
 def _gather_modes(preds: torch.Tensor, mip, short: torch.Tensor):
@@ -277,19 +304,22 @@ def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int):
     return _fma_f32(lam, rate + extra_bits, sse)
 
 
-def _sse_f32(d: torch.Tensor) -> torch.Tensor:
+def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None) -> torch.Tensor:
     """Σ d² per block as vvc's float32 `jnp.sum` gives it.  The integer sum
     is exact; while it stays below 2^24 every float32 partial sum is an
     exact integer whatever the order, so the cast is the answer.  Larger
     sums (rare: a 32×32 block needs a mean squared error above 16384) take
-    XLA's summation order."""
+    XLA's summation order: `xla_block_sum`'s, with its row lanes where
+    `row_lanes` says so (by default at 8×8, the luma SSE's order)."""
     dl = d.to(torch.int64)
     exact = (dl * dl).sum(dim=(1, 2))
     out = exact.to(torch.float32)
     big = exact >= (1 << 24)
     if bool(big.any()):
         dd = d[big].to(torch.float32)
-        out[big] = xla_block_sum(dd * dd, sse=True)
+        if row_lanes is None:
+            row_lanes = d.shape[-1] == 8
+        out[big] = xla_block_sum(dd * dd, row_lanes=row_lanes)
     return out
 
 
@@ -317,15 +347,68 @@ def _min_argmin(cost: torch.Tensor):
     return cost.gather(1, best[:, None])[:, 0], best.to(torch.int32)
 
 
+def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
+                      xs: torch.Tensor, ys: torch.Tensor, size: int,
+                      best_mode: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    """Device 4-way chroma decision (DM / LM / LM_L / LM_T) for N blocks of
+    luma size `size` at (xs, ys): SSE on the original chroma samples, cb
+    and cr costs added, argmin with the first index winning a tie.  Port of
+    vvc/enc/rdo.py:282 → [N] int32.  xs and ys are the grid of the whole
+    frame or tile at this size, as vvc's callers give them.
+
+    Float roundings as vvc's: each plane's float32 sum, then
+    float32(cost_cb) + cost_cr, rounded once more.  A plane sum below 2^24
+    is exact in any order (a 4×4 block of 10-bit samples never reaches
+    it).  Above, the order is the one XLA-CPU gives each of the 8 sums in
+    vvc's fused program (read from its optimised LLVM IR).  Each sum is
+    fused into its cost update (or, where two variants compute the same
+    sum, kept as a reduction of its own), and LLVM vectorises it one of
+    two ways: along the columns (`xla_block_sum`'s default order) or,
+    where it unrolls the column loop, along the rows (row lanes).  The DM
+    sum is vectorised along the columns.  An LM sum is vectorised along
+    the rows at 8×8 and 16×16, and at 32×32 only where its model is the
+    no-neighbour constant (0, 2^(bd-1)) for every block of the grid: when
+    no block has a row above (LM_T), or a column to its left (LM_L), or
+    neither (all three).  vvc's vmapped tile program
+    (`eval_all_sizes_frames`) lays its gathers out otherwise and sums some
+    of them in other orders, which the port does not follow (ROADMAP §3)."""
+    cs = size >> 1
+    cxs, cys = xs >> 1, ys >> 1
+    no_top = not bool((ys > 0).any())
+    no_left = not bool((xs > 0).any())
+    const = {1: no_top and no_left, 2: no_left, 3: no_top}
+    lm_rows = {v: cs <= 16 or const[v] for v in const}
+    dm = torch.where(best_mode >= 67, 0, best_mode).to(torch.int32)
+    o = torch.arange(cs, device=xs.device)
+    iy = (cys.long()[:, None, None] + o[None, :, None])
+    ix = (cxs.long()[:, None, None] + o[None, None, :])
+    ds_blk = ds[iy, ix]
+    maxv = (1 << bit_depth) - 1
+    cost = None
+    for plane in (cb, cr):
+        refs = build_ref_lines_device(plane, cxs, cys, cs, bit_depth)
+        pdm = predict_modes_batch(refs, dm, cs, bit_depth)
+        obs = plane[iy, ix]
+        sums = [_sse_f32(obs - pdm, row_lanes=False)]
+        for v in (1, 2, 3):
+            alpha, beta = derive_models_batch_dev(ds, plane, cxs, cys, cs,
+                                                  bit_depth, v)
+            plm = ((alpha[:, None, None] * ds_blk >> CCLM_SHIFT)
+                   + beta[:, None, None]).clamp(0, maxv)
+            sums.append(_sse_f32(obs - plm, row_lanes=lm_rows[v]))
+        plane_cost = torch.stack(sums, dim=1)                   # [N,4] f32
+        cost = plane_cost if cost is None else cost + plane_cost
+    return torch.argmin(cost, dim=1).to(torch.int32)
+
+
 def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                     ny: int, nx: int, mts_enabled: bool = True,
                     lossless: bool = False, lfnst_enabled: bool = True,
                     chroma=None, h: int | None = None,
                     isp_enabled: bool = False):
     """Whole-frame single-size evaluation: plane [H,W] int32 →
-    (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32)."""
-    if chroma is not None:
-        raise _slice2b("the device chroma decision")
+    (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32).
+    chroma: optional (cb, cr, ds) planes for the device chroma decision."""
     if isp_enabled and not lossless:
         raise _slice2c("ISP")
     s = size
@@ -346,21 +429,27 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                                          try_mts, lossless, try_mip,
                                          try_lfnst)
     z = torch.zeros_like(mode)
+    cmode = z
+    if chroma is not None:
+        cb, cr, ds = chroma
+        cmode = eval_chroma_modes(cb, cr, ds, xs, ys, s, mode, bit_depth)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
-            lfnst.reshape(ny, nx), z.reshape(ny, nx), z.reshape(ny, nx))
+            lfnst.reshape(ny, nx), cmode.reshape(ny, nx), z.reshape(ny, nx))
 
 
 def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                          lfnst=True, cb=None, cr=None, isp=False):
-    if cb is not None:
-        raise _slice2b("the device chroma decision")
+    # the downsampled luma of this frame or tile (a tile's own plane, so
+    # its left column clamps at the tile edge, as vvc's vmap over tiles)
+    chroma = None if cb is None else (cb, cr, luma_ds_plane_dev(plane))
     out = {}
     for (bw, bh) in _as_shapes(sizes):
         ny, nx = h // bh, w // bw
         if ny and nx:
             out[(bw, bh)] = eval_size_plane(plane, bw, qp, bit_depth, ny, nx,
                                             lossless=lossless,
-                                            lfnst_enabled=lfnst, h=bh,
+                                            lfnst_enabled=lfnst,
+                                            chroma=chroma, h=bh,
                                             isp_enabled=isp)
     if _tt_descriptors(sizes):
         raise _slice2c("TT middle-child planes (MTT)")
@@ -381,13 +470,9 @@ def _pack_results(out, sizes):
     return torch.cat(parts)
 
 
-def _check_options(lossless, lfnst, with_chroma, isp):
-    if with_chroma:
-        raise _slice2b("the device chroma decision (CCLM)")
+def _check_options(lossless, isp):
     if isp and not lossless:
         raise _slice2c("ISP")
-    if lfnst and not lossless:
-        raise _slice2b("LFNST")
 
 
 def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
@@ -395,12 +480,13 @@ def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
                    lfnst: bool = True, with_chroma: bool = False,
                    isp: bool = False) -> torch.Tensor:
     """All candidate sizes of one frame → ONE packed int32 vector on the
-    planes' device.  planes_vec: pack_planes(y) as a tensor.  Unpack with
-    unpack_results."""
-    _check_options(lossless, lfnst, with_chroma, isp)
-    y, _, _ = _split_planes(planes_vec, w, h, False)
+    planes' device.  planes_vec: pack_planes(y[, cb, cr]) as a tensor.
+    Unpack with unpack_results."""
+    _check_options(lossless, isp)
+    y, cb, cr = _split_planes(planes_vec, w, h, with_chroma)
     return _pack_results(_eval_all_sizes_impl(y, sizes, int(qp), bit_depth,
-                                              w, h, lossless, lfnst), sizes)
+                                              w, h, lossless, lfnst, cb, cr),
+                         sizes)
 
 
 def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
@@ -410,11 +496,13 @@ def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
                           isp: bool = False) -> torch.Tensor:
     """[F] frames (or tile columns) → [F, per-frame packed length] int32.
     The JAX program's vmap over frames is a frame loop here."""
-    _check_options(lossless, lfnst, with_chroma, isp)
-    y, _, _ = _split_planes(planes_vec, w, h, False, f)
+    _check_options(lossless, isp)
+    y, cb, cr = _split_planes(planes_vec, w, h, with_chroma, f)
     return torch.stack([
-        _pack_results(_eval_all_sizes_impl(y[i], sizes, int(qp), bit_depth,
-                                           w, h, lossless, lfnst), sizes)
+        _pack_results(_eval_all_sizes_impl(
+            y[i], sizes, int(qp), bit_depth, w, h, lossless, lfnst,
+            None if cb is None else cb[i], None if cr is None else cr[i]),
+            sizes)
         for i in range(f)])
 
 
@@ -508,24 +596,33 @@ def rdo_partition_tiled(y_plane: np.ndarray, tiles, qp: int,
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     widths = [tx1 - tx0 for tx0, tx1 in tiles]
     with_chroma = chroma_planes is not None
-    if with_chroma:
-        raise _slice2b("the device chroma decision (CCLM)")
+
+    def chroma_of(tx0, tx1):
+        if not with_chroma:
+            return (None, None)
+        return tuple(c[:, tx0 >> 1:tx1 >> 1] for c in chroma_planes)
+
     if tile_results is None:
         if len(set(widths)) == 1:
             wt = widths[0]
             ys = np.stack([y_plane[:, tx0:tx1] for tx0, tx1 in tiles])
+            cbs = crs = None
+            if with_chroma:
+                cbs, crs = (np.stack(c) for c in zip(
+                    *(chroma_of(tx0, tx1) for tx0, tx1 in tiles)))
             pk = eval_all_sizes_frames(
-                _to_device(pack_planes(ys), device), shapes, qp, bit_depth,
-                wt, h, len(tiles), lossless, lfnst, False,
+                _to_device(pack_planes(ys, cbs, crs), device), shapes, qp,
+                bit_depth, wt, h, len(tiles), lossless, lfnst, with_chroma,
                 isp).cpu().numpy()
             tile_results = [unpack_results(pk[i], shapes, wt, h)
                             for i in range(len(tiles))]
         else:
             tile_results = [
                 unpack_results(eval_all_sizes(
-                    _to_device(pack_planes(y_plane[:, tx0:tx1]), device),
+                    _to_device(pack_planes(y_plane[:, tx0:tx1],
+                                           *chroma_of(tx0, tx1)), device),
                     shapes, qp, bit_depth, tx1 - tx0, h, lossless, lfnst,
-                    False, isp).cpu().numpy(), shapes, tx1 - tx0, h)
+                    with_chroma, isp).cpu().numpy(), shapes, tx1 - tx0, h)
                 for tx0, tx1 in tiles]
     split_map, leaf_map, leaves = {}, {}, []
     for (tx0, tx1), res in zip(tiles, tile_results):

@@ -18,7 +18,9 @@ IDX/IDX2 plus fraction weights FACT into C (negative-angle projections via
 invAngle folded in at table-build time).  The batched path evaluates all
 modes × all blocks of one size from the same tables: plain PyTorch
 (`predict_all_modes_batch_plain`) or the CUDA kernel
-`vvc_torch/csrc/intra_pred.cu`, chosen by `predict_all_modes_batch`.
+`vvc_torch/csrc/intra_pred.cu`, chosen by `predict_all_modes_batch`; and
+`predict_modes_batch` predicts one given mode per block (the chroma DM of
+the RD search) from the same tables and kernel source.
 
 PDPC (position-dependent prediction combination, spec 8.4.5.2.14;
 reference IntraPrediction.cpp → the applyPDPC blocks of predIntraAng):
@@ -689,20 +691,14 @@ def _device_tables(size: int, device: str):
                  for a in (idx, co, W, I, diff, wl))
 
 
-def predict_all_modes_batch_plain(c_batch: torch.Tensor, size: int,
-                                  bit_depth: int = 8) -> torch.Tensor:
-    """Plain PyTorch twin of predict_all_modes_batch_np: [N, 4S+3] int32
-    reference lines → [N, 67, S, S] int32 (integer semantics identical)."""
-    s = size
+def _planar_dc_plain(c: torch.Tensor, s: int, wl: torch.Tensor):
+    """Planar and DC predictions of [N, 4S+3] int32 lines, each after its
+    PDPC blend → two [N,S,S] int32 tensors (unclipped)."""
     log2s = int(np.log2(s))
-    n = c_batch.shape[0]
-    dev = c_batch.device
-    idx, co, W, I, diff, wl = _device_tables(s, str(dev))
-    idx, I = idx.long(), I.long()
-    c = c_batch.to(torch.int32)
+    n = c.shape[0]
     left = c[:, :2 * s].flip(1)                       # left[k], k = 0..2S-1
     top = c[:, 2 * s + 1:4 * s + 1]
-    ar = torch.arange(s, dtype=torch.int32, device=dev)
+    ar = torch.arange(s, dtype=torch.int32, device=c.device)
     below_left = left[:, s][:, None, None]
     above_right = top[:, s][:, None, None]
     pred_v = ((s - 1 - ar)[None, :, None] * top[:, None, :s]
@@ -720,6 +716,25 @@ def predict_all_modes_batch_plain(c_batch: torch.Tensor, size: int,
     def pdpc(p):
         return (wlx * lcol + wty * trow + (64 - wlx - wty) * p + 32) >> 6
 
+    return pdpc(planar), pdpc(dc_pred)
+
+
+def _reversed_line(c: torch.Tensor, s: int) -> torch.Tensor:
+    """ct: the line reversed about its corner, padded like vvc's."""
+    head = c[:, :4 * s + 1].flip(1)
+    return torch.cat([head, head[:, -1:], head[:, -1:]], dim=1)
+
+
+def predict_all_modes_batch_plain(c_batch: torch.Tensor, size: int,
+                                  bit_depth: int = 8) -> torch.Tensor:
+    """Plain PyTorch twin of predict_all_modes_batch_np: [N, 4S+3] int32
+    reference lines → [N, 67, S, S] int32 (integer semantics identical)."""
+    s = size
+    dev = c_batch.device
+    idx, co, W, I, diff, wl = _device_tables(s, str(dev))
+    idx, I = idx.long(), I.long()
+    c = c_batch.to(torch.int32)
+
     def angular(line):
         p = ((co[None] * line[:, idx]).sum(2) + 32) >> 6   # [N,33,S,S]
         ref = line[:, I]
@@ -729,13 +744,11 @@ def predict_all_modes_batch_plain(c_batch: torch.Tensor, size: int,
                         (W[None] * (ref - p) + 32) >> 6)
         return p + d
 
+    planar, dc_pred = _planar_dc_plain(c, s, wl)
     pv = angular(c)
-    head = c[:, :4 * s + 1].flip(1)                   # ct = reversed line
-    ct = torch.cat([head, head[:, -1:], head[:, -1:]], dim=1)
-    ph = angular(ct).transpose(2, 3)
+    ph = angular(_reversed_line(c, s)).transpose(2, 3)
     hm = ph[:, torch.arange(32, 0, -1, device=dev)]
-    out = torch.cat([pdpc(planar)[:, None], pdpc(dc_pred)[:, None], hm, pv],
-                    dim=1)
+    out = torch.cat([planar[:, None], dc_pred[:, None], hm, pv], dim=1)
     return out.clamp(0, (1 << bit_depth) - 1).to(torch.int32)
 
 
@@ -773,3 +786,81 @@ def predict_all_modes_batch(c_batch: torch.Tensor, size: int,
     if ops.use_kernel(c_batch):
         return _predict_all_cuda(c_batch, size, bit_depth)
     return predict_all_modes_batch_plain(c_batch, size, bit_depth)
+
+
+# ---------------------------------------------------------------------------
+# One mode per block — the RD search's chroma DM prediction
+# ---------------------------------------------------------------------------
+
+
+def predict_modes_batch_plain(c_batch: torch.Tensor, modes: torch.Tensor,
+                              size: int, bit_depth: int = 8) -> torch.Tensor:
+    """Plain twin of vvc/kernels/intra.py:878 predict_modes_batch: [N, 4S+3]
+    int32 lines + [N] int32 modes → [N,S,S] int32.  Each block gathers its
+    own mode's table row; the rows are clamped as vvc clamps them
+    (mv = clip(m−34, 0, 32), mh = clip(34−m, 0, 32))."""
+    s = size
+    n = c_batch.shape[0]
+    idx, co, W, I, diff, wl = _device_tables(s, str(c_batch.device))
+    c = c_batch.to(torch.int32)
+    modes = modes.to(torch.int64)
+    mv = (modes - DIA_IDX).clamp(0, 32)
+    mh = (68 - modes - DIA_IDX).clamp(0, 32)
+
+    def angular_row(line, rows):
+        g = line.gather(1, idx[rows].reshape(n, -1).long()).reshape(n, 4, s, s)
+        p = ((co[rows] * g).sum(1) + 32) >> 6
+        ref = line.gather(1, I[rows].reshape(n, -1).long()).reshape(n, s, s)
+        corner = line[:, 2 * s][:, None, None]
+        wj = W[rows]
+        return p + torch.where(diff[rows].bool()[:, None, None],
+                               (wj * (ref - corner)) >> 6,
+                               (wj * (ref - p) + 32) >> 6)
+
+    planar, dc_pred = _planar_dc_plain(c, s, wl)
+    pv = angular_row(c, mv)
+    ph = angular_row(_reversed_line(c, s), mh).transpose(1, 2)
+    m3 = modes[:, None, None]
+    ang = torch.where(m3 >= DIA_IDX, pv, ph)
+    out = torch.where(m3 == PLANAR_IDX, planar,
+                      torch.where(m3 == DC_IDX, dc_pred, ang))
+    return out.clamp(0, (1 << bit_depth) - 1).to(torch.int32)
+
+
+def _predict_one_cuda(c_batch: torch.Tensor, modes: torch.Tensor, size: int,
+                      bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("intra_pred_one", c_batch, modes)
+    n = c_batch.shape[0]
+    if c_batch.dim() != 2 or c_batch.shape[1] != 4 * size + 3:
+        raise ValueError(f"intra_pred_one: refs {tuple(c_batch.shape)} "
+                         f"are not [N, {4 * size + 3}]")
+    if modes.shape != (n,):
+        raise ValueError("intra_pred_one: modes must be [N]")
+    if size not in (4, 8, 16, 32, 64):
+        raise ValueError(f"intra_pred_one: unsupported size {size}")
+    idx, co, W, I, diff, _ = _device_tables(size, str(c_batch.device))
+    out = torch.empty((n, size, size), dtype=torch.int32,
+                      device=c_batch.device)
+    fn = ops.lib("intra_pred_one").intra_pred_one_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 7)
+    fn.restype = ctypes.c_int
+    err = fn(c_batch.data_ptr(), modes.data_ptr(), n, size,
+             int(np.log2(size)), bit_depth, idx.data_ptr(), co.data_ptr(),
+             W.data_ptr(), I.data_ptr(), diff.data_ptr(), out.data_ptr(),
+             ops.stream_ptr(c_batch))
+    ops.launched("intra_pred_one", err)
+    return out
+
+
+def predict_modes_batch(c_batch: torch.Tensor, modes: torch.Tensor,
+                        size: int, bit_depth: int = 8) -> torch.Tensor:
+    """[N, 4S+3] reference lines + [N] int32 modes → [N, S, S] int32, the
+    prediction of each block's own mode.
+
+    Port of vvc/kernels/intra.py:878.  CUDA tensor → the CUDA kernel
+    `intra_pred_one` (vvc_torch/csrc/intra_pred.cu); CPU tensor or
+    `ops.plain()` → predict_modes_batch_plain."""
+    if ops.use_kernel(c_batch):
+        return _predict_one_cuda(c_batch, modes, size, bit_depth)
+    return predict_modes_batch_plain(c_batch, modes, size, bit_depth)

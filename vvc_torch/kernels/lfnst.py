@@ -20,14 +20,22 @@ near-horizontal (2..12) -> 1, diagonal (13..23) -> 2, near-vertical
 coefficient block.  MIP modes map to set 0.  Luma only (single tree).
 LFNST pairs only with the primary DCT2 (mts == 0).
 
-This copy holds the numpy parts (the RDO asks `lfnst_allowed`; the native
-reconstruction core loads the kernels).  The batched device versions
-(vvc/kernels/lfnst.py:94,109) arrive with slice 2b.
+The numpy parts are the recon oracle's (the native reconstruction core
+loads the kernels itself).  The batched versions of the RD search's stage C
+(ports of vvc/kernels/lfnst.py:84-121) are `fwd_lfnst_batch` and
+`inv_lfnst_batch`: on a CUDA tensor they launch the kernels of
+vvc_torch/csrc/lfnst.cu, on a CPU tensor or inside `ops.plain()` they run
+their plain PyTorch twins.
 """
 from __future__ import annotations
 
-import numpy as np
+import ctypes
+from functools import lru_cache
 
+import numpy as np
+import torch
+
+from vvc_torch import ops
 from vvc_torch.rom.lfnst_mats import lfnst_kernels
 
 LFNST_SHIFT = 6
@@ -82,3 +90,111 @@ def inv_lfnst_np(deq: np.ndarray, mode: int, lfnst_idx: int) -> np.ndarray:
     out = np.zeros_like(deq)
     out[:8, :8] = c8.astype(deq.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Batched torch versions ([N, S, S] int32, one lfnst_idx per call)
+# ---------------------------------------------------------------------------
+
+
+def _sets_batch(modes: torch.Tensor):
+    """Vectorised lfnst_set over an int32 mode vector → (set [N] int32,
+    transpose [N] bool)."""
+    modes = modes.to(torch.int32)
+    is_mip = modes >= 67
+    t = (modes > 34) & ~is_mip
+    m = torch.where(t, 68 - modes, modes)
+    g = torch.where(m <= 1, 0, torch.where(m <= 12, 1,
+                                           torch.where(m <= 23, 2, 3)))
+    g = torch.where(is_mip, 0, g)
+    return g.to(torch.int32), t
+
+
+@lru_cache(maxsize=None)
+def _kernels_dev(device: str) -> torch.Tensor:
+    """The [4, 2, 16, 64] kernels as int8 on `device` (values −45..64, so
+    the cast is exact; tests/test_torch_lfnst.py holds that)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        lfnst_kernels().astype(np.int8))).to(device)
+
+
+def _gathered(modes: torch.Tensor, lfnst_idx: int, device):
+    g, t = _sets_batch(modes)
+    b = _kernels_dev(str(device))[:, lfnst_idx - 1][g.long()]   # [N,16,64]
+    return b.to(torch.float64), t
+
+
+def fwd_lfnst_batch_plain(coeff: torch.Tensor, modes: torch.Tensor,
+                          lfnst_idx: int) -> torch.Tensor:
+    """Plain twin of vvc/kernels/lfnst.py:94 fwd_lfnst_batch.  The int32
+    products and sums are exact in float64 (|sum| ≤ 252·32767 < 2^24)."""
+    n, s, _ = coeff.shape
+    b, t = _gathered(modes, lfnst_idx, coeff.device)
+    c8 = coeff[:, :8, :8]
+    c8 = torch.where(t[:, None, None], c8.transpose(1, 2), c8)
+    y = torch.bmm(b, c8.reshape(n, 64, 1).to(torch.float64))[..., 0]
+    y = ((y.to(torch.int32) + 32) >> LFNST_SHIFT).clamp(-32768, 32767)
+    out = torch.zeros_like(coeff)
+    out[:, :4, :4] = y.reshape(n, 4, 4).to(coeff.dtype)
+    return out
+
+
+def inv_lfnst_batch_plain(deq: torch.Tensor, modes: torch.Tensor,
+                          lfnst_idx: int) -> torch.Tensor:
+    """Plain twin of vvc/kernels/lfnst.py:109 inv_lfnst_batch (|sum| ≤
+    152·32767, exact in float64)."""
+    n, s, _ = deq.shape
+    b, t = _gathered(modes, lfnst_idx, deq.device)
+    y = deq[:, :4, :4].reshape(n, 1, 16).to(torch.float64)
+    c8 = torch.bmm(y, b)[:, 0]                                  # [N,64]
+    c8 = ((c8.to(torch.int32) + 32) >> LFNST_SHIFT).clamp(-32768, 32767)
+    c8 = c8.reshape(n, 8, 8)
+    c8 = torch.where(t[:, None, None], c8.transpose(1, 2), c8)
+    out = torch.zeros_like(deq)
+    out[:, :8, :8] = c8.to(deq.dtype)
+    return out
+
+
+def _lfnst_cuda(name: str, x: torch.Tensor, modes: torch.Tensor,
+                lfnst_idx: int) -> torch.Tensor:
+    ops.check_cuda_i32(name, x, modes)
+    n, h, w = x.shape
+    if h != w or w not in (8, 16, 32, 64):
+        raise ValueError(f"{name}: unsupported block {h}x{w}")
+    if modes.shape != (n,):
+        raise ValueError(f"{name}: modes must be [N]")
+    if lfnst_idx not in (1, 2):
+        raise ValueError(f"{name}: lfnst_idx must be 1 or 2")
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    fn = getattr(ops.lib(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), modes.data_ptr(),
+             _kernels_dev(str(x.device)).data_ptr(), out.data_ptr(), n, w,
+             lfnst_idx, ops.stream_ptr(x))
+    ops.launched(name, err)
+    return out
+
+
+def fwd_lfnst_batch(coeff: torch.Tensor, modes: torch.Tensor,
+                    lfnst_idx: int) -> torch.Tensor:
+    """[N,S,S] int32 primary coefficients + [N] int32 modes → [N,S,S]
+    secondary-coded blocks (top-left 4×4, the rest zero).  CUDA tensor →
+    csrc/lfnst.cu `lfnst_fwd`; CPU tensor or `ops.plain()` → the twin."""
+    if ops.use_kernel(coeff):
+        return _lfnst_cuda("lfnst_fwd", coeff, modes, lfnst_idx)
+    return fwd_lfnst_batch_plain(coeff, modes, lfnst_idx)
+
+
+def inv_lfnst_batch(deq: torch.Tensor, modes: torch.Tensor,
+                    lfnst_idx: int) -> torch.Tensor:
+    """[N,S,S] int32 dequantised blocks (secondary coefficients in the
+    top-left 4×4) → [N,S,S] primary coefficients (top-left 8×8, the rest
+    zero).  CUDA tensor → csrc/lfnst.cu `lfnst_inv`; CPU tensor or
+    `ops.plain()` → the twin."""
+    if ops.use_kernel(deq):
+        return _lfnst_cuda("lfnst_inv", deq, modes, lfnst_idx)
+    return inv_lfnst_batch_plain(deq, modes, lfnst_idx)

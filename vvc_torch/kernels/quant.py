@@ -145,6 +145,9 @@ def dequant_batch(level: torch.Tensor, qp: int,
 #     s = ((R0+R4)+(R2+R6)) + ((R1+R5)+(R3+R7)).
 #   S = 64: the reduction is split into 32×32 windows, each summed
 #     sequentially row-major from 0; then (W00 + W01) + (W10 + W11).
+#   Row lanes (S = 8..32), where LLVM unrolls the column loop and
+#     vectorises the row loop instead: lane v sums rows v, v+8, ... in
+#     turn, each left to right; then the same tree.
 # ---------------------------------------------------------------------------
 
 
@@ -154,17 +157,21 @@ def _tree8(r: torch.Tensor) -> torch.Tensor:
             + ((r[..., 1] + r[..., 5]) + (r[..., 3] + r[..., 7])))
 
 
-def xla_block_sum(x: torch.Tensor, sse: bool = False) -> torch.Tensor:
-    """[M, S, S] float32 → [M] float32, summed in XLA-CPU's order.  The
-    8×8 SSE reduction is vectorised the other way round: lane v sums row v
-    left to right, then the 8 lanes meet in the same halving tree."""
+def xla_block_sum(x: torch.Tensor, row_lanes: bool = False) -> torch.Tensor:
+    """[M, S, S] float32 → [M] float32, summed in XLA-CPU's order.
+    row_lanes (S ≤ 32): vectorised the other way round — lane v sums rows
+    v, v+8, ... left to right, then the 8 lanes meet in the same halving
+    tree.  The order of the 8×8 SSE, of the LFNST stage's 8×8 rate and of
+    the chroma decision's CCLM sums."""
     m, s, s2 = x.shape
     assert s == s2 and s in (8, 16, 32, 64), x.shape
     x = x.to(torch.float32)
-    if sse and s == 8:
-        acc = x[:, :, 0]
-        for j in range(1, 8):
-            acc = acc + x[:, :, j]
+    if row_lanes:
+        assert s <= 32, x.shape
+        acc = x[:, 0:8, 0]
+        for r in range(0, s, 8):
+            for j in range(int(r == 0), s):
+                acc = acc + x[:, r:r + 8, j]
         return _tree8(acc)
     if s == 64:
         win = x.reshape(m, 2, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(
@@ -192,14 +199,15 @@ def xla_block_sum(x: torch.Tensor, sse: bool = False) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
+def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
+                     row_lanes: bool = False):
     """Plain twin of the `quant_rate` kernel: the composition of
     quant_batch (intra), level_bits and dequant_batch, with the rate summed
     per block in XLA's order.  → (rate [N] f32, dequantised [N,S,S] i32);
     the levels are not returned, as the kernel does not write them."""
     from vvc_torch.cabac.rates import level_bits
     lev = quant_batch(coeff, qp, bit_depth, intra=True)
-    rate = xla_block_sum(level_bits(lev.abs()))
+    rate = xla_block_sum(level_bits(lev.abs()), row_lanes)
     return rate, dequant_batch(lev, qp, bit_depth)
 
 
@@ -211,12 +219,15 @@ def _rate_tables(device: str):
             torch.from_numpy(LEVEL_BITS_TABLE.copy()).to(device))
 
 
-def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int):
+def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
+                     row_lanes: bool):
     from vvc_torch.cabac.rates import log_scale_f32
     ops.check_cuda_i32("quant_rate", coeff)
     n, h, w = coeff.shape
     if h != w or w not in (8, 16, 32, 64):
         raise ValueError(f"quant_rate: unsupported block {h}x{w}")
+    if row_lanes and w != 8:
+        raise ValueError("quant_rate: row_lanes is an 8x8 order")
     scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, True)
     dscale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
     if shift <= 0:
@@ -228,22 +239,27 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int):
         return rate, deq
     fn = ops.lib("quant_rate").quant_rate_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(coeff.data_ptr(), log_tab.data_ptr(), base_tab.data_ptr(),
              deq.data_ptr(), rate.data_ptr(), n, w,
              scale, offset, qbits, dscale, sh6, shift,
-             float(log_scale_f32()), ops.stream_ptr(coeff))
+             float(log_scale_f32()), int(row_lanes), ops.stream_ptr(coeff))
     ops.launched("quant_rate", err)
     return rate, deq
 
 
-def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8):
+def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
+               row_lanes: bool = False):
     """[N,S,S] int32 coefficients → (rate [N] f32, dequantised [N,S,S]
     i32).  One pass of vvc's quant_batch,
     level_bits_jnp + sum and dequant_batch (vvc/kernels/quant.py:87,106,
-    vvc/cabac/rates.py:41).  CUDA tensor → vvc_torch/csrc/quant_rate.cu;
-    CPU tensor or `ops.plain()` → quant_rate_plain."""
+    vvc/cabac/rates.py:41).  row_lanes (S = 8 only): sum the rate in the
+    order XLA gives the 8×8 reduction of the LFNST stage (each row in its
+    own lane, then the lane tree) instead of the stages-A/B order.  CUDA
+    tensor → vvc_torch/csrc/quant_rate.cu; CPU tensor or `ops.plain()` →
+    quant_rate_plain."""
     if ops.use_kernel(coeff):
-        return _quant_rate_cuda(coeff, qp, bit_depth)
-    return quant_rate_plain(coeff, qp, bit_depth)
+        return _quant_rate_cuda(coeff, qp, bit_depth, row_lanes)
+    return quant_rate_plain(coeff, qp, bit_depth, row_lanes)

@@ -42,6 +42,11 @@ SOURCES = {
     "transform_inv": "transform.cu",
     "quant_rate": "quant_rate.cu",
     "mip_pred_all": "mip.cu",
+    "lfnst_fwd": "lfnst.cu",
+    "lfnst_inv": "lfnst.cu",
+    "luma_ds": "cclm.cu",
+    "cclm_models": "cclm.cu",
+    "intra_pred_one": "intra_pred.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--trace profile_trace.json] [--lossy [2a|2b]]
+    python3 chip_profile.py [--trace profile_trace.json] [--lossy [3|2b|2a]]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -22,10 +22,13 @@ phase totals (thread-seconds).  serial against the two pooled runs says
 whether the pool's threads overlap the host work; pooled against
 pooled-profiled says what the profiler costs.
 
-With --lossy it is lossy All-Intra through `Encoder.encode_frame`, one
-frame after the other, twice: profiled (the device's busy time and idle
-share as above) and unprofiled.  --lossy 2b (the default) has MTS, MIP,
-LFNST, CCLM and deblocking on; --lossy 2a leaves LFNST and CCLM off.
+--lossy 3 (--lossy alone) is the slice-3 main path: lossy
+`encode_sequence` with its default tool set (MTS, MIP, LFNST, CCLM,
+deblocking, SAO, ALF, CC-ALF), run as above: pooled-profiled, serial and
+pooled.  --lossy 2b and 2a are lossy All-Intra through
+`Encoder.encode_frame`, one frame after the other, twice: profiled (the
+device's busy time and idle share as above) and unprofiled; 2b has MTS,
+MIP, LFNST, CCLM and deblocking on, 2a leaves LFNST and CCLM off.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -64,9 +67,10 @@ def busy_seconds(trace_path: str) -> tuple[float, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default="profile_trace.json")
-    ap.add_argument("--lossy", nargs="?", const="2b", choices=("2a", "2b"),
-                    help="profile a lossy All-Intra path (encode_frame): "
-                         "2b with LFNST and CCLM (default), or 2a")
+    ap.add_argument("--lossy", nargs="?", const="3", choices=("3", "2b", "2a"),
+                    help="profile a lossy All-Intra path: 3, encode_sequence "
+                         "with the default tools (default); 2b or 2a, "
+                         "encode_frame with slice 2b's or 2a's tools")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -89,23 +93,26 @@ def main() -> int:
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
     if args.lossy == "2b":
         lossy.update(lfnst=True, cclm=True)
-    if args.lossy:
+    per_frame = args.lossy in ("2a", "2b")
+    lossless = args.lossy is None
+    if per_frame:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
         enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
     else:
-        encode_sequence([synth_frame(416, 240, 0)], qp=32, lossless=True)
+        encode_sequence([synth_frame(416, 240, 0)], qp=32,
+                        lossless=lossless)
 
     def run(name, calls):
         perf.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for fs in calls:
-            if args.lossy:
+            if per_frame:
                 for poc, f in enumerate(fs):
                     enc.encode_frame(f, poc)
             else:
-                encode_sequence(fs, qp=32, lossless=True)
+                encode_sequence(fs, qp=32, lossless=lossless)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return {"run": name,
@@ -118,7 +125,7 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        rec = run("serial-profiled" if args.lossy else "pooled-profiled",
+        rec = run("serial-profiled" if per_frame else "pooled-profiled",
                   [frames])
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
@@ -132,7 +139,7 @@ def main() -> int:
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     print(top, flush=True)
-    if args.lossy:
+    if per_frame:
         print(json.dumps(run("serial", [frames])), flush=True)
         return 0
     print(json.dumps(run("serial", [[f] for f in frames])), flush=True)

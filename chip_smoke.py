@@ -5,17 +5,20 @@
 
 Builds the port's CUDA kernels from vvc_torch/csrc with nvcc (sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's three main paths at 1920×1080, QP 32 — lossless All-Intra through
-`vvc_torch.enc.encoder.encode_sequence` (slice 1, two frames), lossy
+port's four main paths at 1920×1080, QP 32 — lossless All-Intra through
+`vvc_torch.enc.encoder.encode_sequence` (slice 1, one frame), lossy
 All-Intra with MTS, MIP and deblocking through `Encoder.encode_frame`
-(slice 2a, two frames), and the same with LFNST and CCLM on (slice 2b,
-two frames) — and checks what comes out:
+(slice 2a, two frames), the same with LFNST and CCLM on (slice 2b, two
+frames), and lossy `encode_sequence` with its default tool set, SAO, ALF
+and CC-ALF included (slice 3, two frames) — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the twelve kernels against its plain version on the card
-     (exact equality; the quant_rate kernel's float rates bit for bit),
-     at the main paths' shapes, with CUDA-event times per 1080p frame;
+  3. each of the fourteen kernels against its plain version on the card
+     (exact equality; the quant_rate kernel's float rates and the filter
+     statistics bit for bit), at the main paths' shapes, with CUDA-event
+     times per 1080p frame (the SAO and ALF statistics on the recon of a
+     2b picture, after [7]);
   4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
      kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
@@ -26,7 +29,14 @@ two frames) — and checks what comes out:
      number of times, PSNR and bytes in range, LFNST leaves and CCLM
      chroma modes counted;
   8. at 416×240, the kernel path's streams byte-equal to the plain path's,
-     lossless, 2a and 2b, single-tile and with 2 tile columns.
+     lossless, 2a and 2b, single-tile and with 2 tile columns;
+  10. the slice-3 main path: each of the fourteen kernels launched the
+     expected number of times (these counts fill the kernel table), PSNR
+     and bytes in range, the NALs of each picture (ALF APS, slice, hash
+     SEI), the SAO types and ALF filters used, and the stream byte-equal
+     to the plain path's;
+  11. bench_ai's configuration (8 × 416×240, QP 32, the defaults), single
+     tile and 2 tile columns: kernel streams == plain streams, frames/s.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -67,6 +77,8 @@ LOSSY_2B_LAUNCHES = dict(LOSSY_LAUNCHES, ref_lines=12, transform_fwd=20,
                          lfnst_inv=8, luma_ds=1, cclm_models=24,
                          intra_pred_one=8)
 LOSSLESS_KERNELS = ("ref_lines", "intra_pred_all", "satd")
+# slice 3 adds the filter statistics: SAO per component, ALF once
+SLICE3_LAUNCHES = dict(LOSSY_2B_LAUNCHES, sao_stats=3, alf_stats=1)
 
 
 def check(cond, msg: str) -> None:
@@ -145,8 +157,9 @@ def main() -> int:
     from vvc_torch.hls.ps import PPS, SPS
     from vvc_torch.io.nal import read_annexb
     from vvc_torch.io.synth import synth_frame
-    from vvc_torch.kernels import (cclm, intra, lfnst, mip, quant, satd,
-                                   transform)
+    from vvc_torch.enc import sao_enc
+    from vvc_torch.kernels import (alf, cclm, intra, lfnst, mip, quant, sao,
+                                   satd, transform)
     from vvc_torch.packer import native_recon
     from vvc_torch.utils import perf
 
@@ -542,6 +555,8 @@ def main() -> int:
         del luma, ds, planes
     torch.cuda.synchronize()
     for name, st in stats.items():
+        if name in ("sao_stats", "alf_stats"):
+            continue                  # timed on a 2b recon after [7]
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
         print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
               f"launches): kernel {st['ms']:.3f} ms, plain "
@@ -550,6 +565,7 @@ def main() -> int:
 
     # 4. the 1080p search vectors: kernels against the plain path
     frames = [synth_frame(W_HD, H_HD, t) for t in range(2)]
+    lossless_frames = frames[:1]
     shapes = rdo._candidate_shapes(64, 8, False)
     vec = torch.from_numpy(rdo.pack_planes(frames[0].y)).to(dev)
     vec2b = torch.from_numpy(rdo.pack_planes(frames[0].y, frames[0].cb,
@@ -581,29 +597,30 @@ def main() -> int:
               f"{search_ms:.3f} ms (plain {search_plain_ms:.3f} ms){extra}",
               flush=True)
 
-    # 5. the lossless main path (slice 1), two frames, counted
+    # 5. the lossless main path (slice 1), one frame, counted
     perf.reset()
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
-    bs, recons, _ = encode_sequence(frames, qp=32, lossless=True)
+    bs, recons, _ = encode_sequence(lossless_frames, qp=32, lossless=True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(ops.COUNTS)
-    for f, r in zip(frames, recons):
+    for f, r in zip(lossless_frames, recons):
         for a, b in ((f.y, r.y), (f.cb, r.cb), (f.cr, r.cr)):
             check(np.array_equal(a, b), "1080p lossless recon != source")
     types = [n.nal_type for n in read_annexb(bs)]
     check(types[:2] == [15, 16], f"stream does not start with SPS, PPS: "
           f"{types[:4]}")
     for name in ops.COUNTS:
-        want_n = len(SIZES) * len(frames) if name in LOSSLESS_KERNELS else 0
+        want_n = (len(SIZES) * len(lossless_frames)
+                  if name in LOSSLESS_KERNELS else 0)
         check(launches[name] == want_n,
               f"{name}: {launches[name]} launches on the lossless main "
               f"path, expected {want_n}")
-    print(f"[5] lossless main path: 2 frames 1920x1080 AI QP32 on {kind}: "
+    print(f"[5] lossless main path: 1 frame 1920x1080 AI QP32 on {kind}: "
           f"{len(bs)} bytes, {elapsed:.2f} s, "
-          f"{len(frames) / elapsed:.4f} frames/s; recon == source; "
+          f"{len(lossless_frames) / elapsed:.4f} frames/s; recon == source; "
           f"launches {launches}; phases (thread-seconds) "
           f"{json.dumps(perf.report())}", flush=True)
 
@@ -689,7 +706,177 @@ def main() -> int:
         print(f"[8] 416x240 {kw or 'single tile'}: lossless, "
               f"{', '.join(sizes)}: kernel streams == plain streams",
               flush=True)
-    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s",
+
+    # 3 (continued). the filter statistics against their plain versions,
+    # on the recon of a 2b picture (the 2b encoder of [7] again, frame 0):
+    # SAO per component (Y at CTU 64, Cb and Cr at 32), ALF on luma
+    rec2b = Encoder(SPS(width=W_HD, height=H_HD, **sps_2b),
+                    PPS(init_qp=32)).encode_frame(frames[0], 0)[1]
+    tiles = [(0, W_HD, 0, H_HD)]
+    for comp, (o_np, r_np) in enumerate(zip(
+            (frames[0].y, frames[0].cb, frames[0].cr),
+            (rec2b.y, rec2b.cb, rec2b.cr))):
+        h, w = o_np.shape
+        cs = 64 >> (comp > 0)
+        tl = tiles if comp == 0 else [(0, w, 0, h)]
+        vx, vy = sao_enc._valid_vectors(h, w, tl)
+        args = (torch.from_numpy(o_np.astype(np.int32)).to(dev),
+                torch.from_numpy(r_np.astype(np.int32)).to(dev),
+                torch.from_numpy(vx).to(dev), torch.from_numpy(vy).to(dev),
+                cs, 8)
+        got = sao.sao_stats_dev(*args)
+        with ops.plain():
+            want = sao.sao_stats_dev(*args)
+        for g, wv in zip(got, want):
+            compare("sao_stats", g.view(torch.int32), wv.view(torch.int32))
+        f = lambda: sao.sao_stats_dev(*args)
+        k_ms = cuda_ms(f)
+        with ops.plain():
+            p_ms = cuda_ms(f, iters=3, warmup=1)
+        ny, nx = -(-h // cs), -(-w // cs)
+        add_time("sao_stats", k_ms, p_ms,
+                 2 * h * w * 4 + h + w + ny * nx * 96 * 4, 20 * h * w)
+        # library: torch.bincount with weights (the sums) and without (the
+        # counts) over a (CTU, category) key — 16 EO slots and 32 bands per
+        # CTU, each sample keyed once per EO class (category 0 to a spare
+        # bin) and once by its band; the categories are computed outside
+        o_t, r_t = args[0], args[1]
+        ctu = ((torch.arange(h, device=dev) // cs)[:, None] * nx
+               + (torch.arange(w, device=dev) // cs)[None, :])
+        spare = ny * nx * 48
+        keys = []
+        for ec, (dx, dy) in enumerate(sao.EO_DIRS):
+            cat = torch.tensor([1, 2, 0, 3, 4], device=dev)[
+                (sao._eo_signs(r_t, ec) + 2).long()]
+            ok = cat > 0
+            if dx:
+                ok = ok & args[2][None, :]
+            if dy:
+                ok = ok & args[3][:, None]
+            keys.append(torch.where(ok, ctu * 48 + ec * 4 + cat - 1, spare))
+        keys.append(ctu * 48 + 16 + (r_t >> 3))
+        key = torch.stack(keys).reshape(-1)
+        wts = (o_t - r_t).to(torch.float64).reshape(-1).repeat(5)
+
+        def lib_sao():
+            return (torch.bincount(key, weights=wts, minlength=spare + 1),
+                    torch.bincount(key, minlength=spare + 1))
+        ld, ln = (x[:spare].reshape(ny, nx, 48).to(torch.int32)
+                  for x in lib_sao())
+        compare("sao_stats", ld[..., 16:], got[2].to(torch.int32))
+        compare("sao_stats", ln[..., 16:], got[3].to(torch.int32))
+        compare("sao_stats", ld[..., :16].reshape(ny, nx, 4, 4).permute(
+            2, 3, 0, 1), got[0].to(torch.int32))
+        stats["sao_stats"]["library_ms"] = (
+            stats["sao_stats"]["library_ms"] or 0.0) + cuda_ms(lib_sao)
+    o_np, r_np = frames[0].y, rec2b.y
+    cls4, tr4 = alf.alf_classify(r_np, 8)
+    targs = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+             for a in (o_np, r_np, cls4, tr4)]
+    got = alf.alf_stats_dev(*targs)
+    with ops.plain():
+        want = alf.alf_stats_dev(*targs)
+    for g, wv in zip(got, want):
+        compare("alf_stats", g.view(torch.int32), wv.view(torch.int32))
+    f = lambda: alf.alf_stats_dev(*targs)
+    k_ms = cuda_ms(f)
+    with ops.plain():
+        p_ms = cuda_ms(f, iters=3, warmup=1)
+    npts = ((H_HD + 1) // 2) * ((W_HD + 1) // 2)
+    # bytes it must move: r whole, o's even rows at sector granularity,
+    # cls4 and tr4, the statistics written; 90 multiply-adds per point
+    add_time("alf_stats", k_ms, p_ms,
+             H_HD * W_HD * 4 + (H_HD // 2) * W_HD * 4
+             + 2 * cls4.size * 4 + (100 * 90 + 50) * 8, npts * 2 * 92)
+    # library: a float64 einsum of the one-hot [P, 100] group matrix with
+    # the per-point products F·Fᵀ and F·t ([P, 156]); exact in float64
+    F, t, key, _ = alf._alf_grid(*targs)
+    Ff, tf = F.to(torch.float64), t.to(torch.float64)
+    prod = torch.cat([(Ff[:, None] * Ff[None, :]).reshape(144, -1),
+                      Ff * tf[None]]).T.contiguous()
+
+    def lib_alf():
+        onehot = torch.nn.functional.one_hot(key, 100).to(torch.float64)
+        g = torch.einsum("pg,pk->gk", onehot, prod)
+        return g[:, :144].reshape(100, 12, 12), g[:, 144:]
+    la, lb = lib_alf()
+    compare("alf_stats", la.to(torch.float32).view(torch.int32),
+            got[0].view(torch.int32))
+    compare("alf_stats", lb.to(torch.float32).view(torch.int32),
+            got[1].view(torch.int32))
+    stats["alf_stats"]["library_ms"] = cuda_ms(lib_alf, iters=3, warmup=1)
+    del targs, F, t, key, Ff, tf, prod, la, lb
+    for name in ("sao_stats", "alf_stats"):
+        st = stats[name]
+        st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
+        print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
+              f"launches): kernel {st['ms']:.3f} ms, plain "
+              f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms "
+              f"({st['bound_by']}), library {st['library_ms']}", flush=True)
+
+    # 10. the slice-3 main path: lossy encode_sequence with the defaults
+    # (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF), two frames,
+    # counted; its counts fill the kernel table
+    perf.reset()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    bs3, recons3, stats3 = encode_sequence(frames, qp=32)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ops.COUNTS)
+    phases = perf.report()
+    for name in ops.COUNTS:
+        want_n = SLICE3_LAUNCHES.get(name, 0) * len(frames)
+        check(launches[name] == want_n,
+              f"{name}: {launches[name]} launches on the slice-3 main "
+              f"path, expected {want_n}")
+    nals3 = read_annexb(bs3)
+    types = [n.nal_type for n in nals3]
+    check(types[:2] == [15, 16] and types[2:].count(8) == len(frames)
+          and types[2:].count(24) == len(frames)
+          and set(types[2:]) <= {8, 17, 24},
+          f"slice-3 stream NAL types {types}")
+    for f, r, st3 in zip(frames, recons3, stats3):
+        for a, b in ((f.y, r.y), (f.cb, r.cb), (f.cr, r.cr)):
+            check(a.shape == b.shape and int(b.min()) >= 0
+                  and int(b.max()) <= 255, "slice-3 recon out of range")
+        for k in ("psnr_y", "psnr_cb", "psnr_cr"):
+            check(30.0 < st3[k] < 70.0, f"slice 3 {k} {st3[k]}")
+        check("sao_types" in st3 and "alf" in st3,
+              "slice-3 stats lack the SAO/ALF record")
+    with ops.plain():
+        bs3_plain = encode_sequence(frames, qp=32)[0]
+    check(bs3 == bs3_plain, "1080p slice-3 stream: kernels != plain")
+    sao_hist = np.sum([s3["sao_types"] for s3 in stats3], axis=0).tolist()
+    print(f"[10] slice-3 main path: 2 frames 1920x1080 AI QP32 "
+          f"(encode_sequence defaults: MTS, MIP, LFNST, CCLM, deblocking, "
+          f"SAO, ALF, CC-ALF) on {kind}: {len(bs3)} bytes, {elapsed:.2f} s, "
+          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y/Cb/Cr "
+          f"{[round(float(s3['psnr_y']), 4) for s3 in stats3]} / "
+          f"{[round(float(s3['psnr_cb']), 4) for s3 in stats3]} / "
+          f"{[round(float(s3['psnr_cr']), 4) for s3 in stats3]} dB; "
+          f"NAL types {types}; SAO CTUs (OFF, BO, EO) for Y/Cb/Cr "
+          f"{sao_hist}; ALF {[s3['alf'] for s3 in stats3]}; stream == "
+          f"plain stream; launches {launches}; phases (thread-seconds) "
+          f"{json.dumps(phases)}", flush=True)
+
+    # 11. bench_ai's configuration: 8 frames 416x240 QP32, the defaults
+    bench = [synth_frame(416, 240, t) for t in range(8)]
+    for kw in ({}, {"num_tile_cols": 2}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = encode_sequence(bench, qp=32, **kw)[0]
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        with ops.plain():
+            b = encode_sequence(bench, qp=32, **kw)[0]
+        check(a == b, f"416x240x8 {kw}: kernel stream != plain stream")
+        print(f"[11] bench_ai 8 frames 416x240 QP32 {kw or 'single tile'} "
+              f"on {kind}: {len(a)} bytes, {el:.2f} s, "
+              f"{len(bench) / el:.4f} frames/s; kernel stream == plain "
+              f"stream", flush=True)
+    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -704,7 +891,9 @@ def main() -> int:
            "lfnst_inv": "vvc/kernels/lfnst.py:109",
            "luma_ds": "vvc/kernels/cclm.py:173",
            "cclm_models": "vvc/kernels/cclm.py:187",
-           "intra_pred_one": "vvc/kernels/intra.py:878"}
+           "intra_pred_one": "vvc/kernels/intra.py:878",
+           "sao_stats": "vvc/kernels/sao.py:157",
+           "alf_stats": "vvc/kernels/alf.py:330"}
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k], "launches": launches[k],

@@ -238,4 +238,54 @@ def test_2b_search_vector_equal_plain(dev, cols):
     got, want = _both(rdo.eval_all_sizes_frames, vec, shapes, 32, 8, w, h,
                       cols, False, True, True)
     assert torch.equal(got, want)
-    assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS)
+    # every kernel of the search (the filter statistics run after it)
+    assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
+               if k not in ("sao_stats", "alf_stats"))
+
+
+@pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
+                                             (10, 32, 136, 200),
+                                             (8, 32, 540, 960)])
+def test_sao_stats_equal_plain(dev, bit_depth, cs, h, w):
+    """Per-CTU SAO statistics, exact: partial CTUs at the plane's edges
+    and 2 tile columns' validity vectors."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import sao
+    rng = np.random.default_rng(bit_depth + cs + h)
+    mx = (1 << bit_depth) - 1
+    orig = rng.integers(0, mx + 1, (h, w)).astype(np.int32)
+    rec = np.clip(orig + rng.integers(-9, 10, (h, w)), 0, mx).astype(np.int32)
+    vx = np.ones(w, bool)
+    vy = np.ones(h, bool)
+    vx[[0, w // 2 - 1, w // 2, w - 1]] = False
+    vy[[0, h - 1]] = False
+    t = lambda a: torch.from_numpy(a).to(dev)
+    before = ops.COUNTS["sao_stats"]
+    got, want = _both(sao.sao_stats_dev, t(orig), t(rec), t(vx), t(vy), cs,
+                      bit_depth)
+    for g, wv in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, wv)
+    assert ops.COUNTS["sao_stats"] == before + 1
+
+
+@pytest.mark.parametrize("bit_depth,h,w", [(8, 240, 416), (10, 136, 200),
+                                          (8, 1080, 1920)])
+def test_alf_stats_equal_plain(dev, bit_depth, h, w):
+    """ALF statistics, bit-equal to the plain twin (both exact sums rounded
+    once to float32)."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import alf
+    rng = np.random.default_rng(bit_depth + h)
+    mx = (1 << bit_depth) - 1
+    orig = rng.integers(0, mx + 1, (h, w)).astype(np.int32)
+    rec = np.clip(orig + rng.integers(-20, 21, (h, w)), 0, mx).astype(np.int32)
+    cls4, tr4 = alf.alf_classify(rec, bit_depth)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    before = ops.COUNTS["alf_stats"]
+    got, want = _both(alf.alf_stats_dev, t(orig), t(rec), t(cls4), t(tr4))
+    for g, wv in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, wv)
+    assert ops.COUNTS["alf_stats"] == before + 1
+    assert float(got[3].sum()) == ((h + 1) // 2) * ((w + 1) // 2)

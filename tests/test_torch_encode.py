@@ -1,9 +1,11 @@
 """The port's encoder (vvc_torch.enc.encoder) against vvc's: lossless
-All-Intra streams (encode_sequence) and lossy All-Intra pictures with MTS,
-MIP and deblocking (Encoder.encode_frame; slice 2b adds LFNST and CCLM)
-are byte-equal, single-tile and with 2 tile columns, the reconstructions
-are equal, and vvc's decoder decodes them with every picture hash OK.
-Options of later slices raise.  Tolerance: exact (bytes and samples)."""
+All-Intra streams (encode_sequence), lossy All-Intra pictures with MTS,
+MIP and deblocking (Encoder.encode_frame; slice 2b adds LFNST and CCLM),
+and lossy encode_sequence with vvc's default tool set (slice 3 adds SAO,
+ALF and CC-ALF) are byte-equal, single-tile and with 2 tile columns, the
+reconstructions are equal, and vvc's decoder decodes them with every
+picture hash OK.  Options of later slices raise.  Tolerance: exact (bytes
+and samples)."""
 import numpy as np
 import pytest
 
@@ -49,11 +51,12 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw,match", [({"lossless": False}, "slice 3"),
+@pytest.mark.parametrize("kw,match", [({"lossless": False, "mtt": True},
+                                       "slice 2c"),
                                       ({"lossless": True, "mode": "ra"},
                                        "inter slice"),
                                       ({"lossless": True, "target_kbps": 500},
-                                       "slice 3"),
+                                       "rate-control item"),
                                       ({"lossless": True, "wpp": True},
                                        "slice 2c")])
 def test_options_of_later_slices_raise(kw, match):
@@ -63,6 +66,7 @@ def test_options_of_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         port_encode(frames, qp=32, device="cpu", **kw)
     assert "slice 2b" not in str(err.value)
+    assert "slice 3" not in str(err.value)
 
 
 # the lossy configuration of slice 2a: LFNST, CCLM, SAO and ALF stay at
@@ -149,13 +153,82 @@ def test_2b_encode_frame_smooth_lfnst_leaves():
     assert any(l.lfnst > 0 for _, leaves in out for l in leaves)
 
 
-@pytest.mark.parametrize("option,match", [("sao", "slice 3"),
-                                          ("alf", "slice 3")])
+@pytest.mark.parametrize("option,match", [("isp", "slice 2c"),
+                                          ("dep_quant", "slice 2c")])
 def test_lossy_options_of_later_slices_raise(option, match):
     from vvc_torch.enc.encoder import Encoder
     from vvc_torch.hls.ps import PPS as PortPPS, SPS as PortSPS
     from vvc_torch.io.synth import synth_frame as port_synth_frame
     enc = Encoder(PortSPS(width=64, height=64, **LOSSY, **{option: True}),
                   PortPPS(init_qp=32), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         enc.encode_frame(port_synth_frame(64, 64, 0), 0)
+    assert "slice 3" not in str(err.value)
+
+
+def _cosited(f, frame_cls):
+    """A frame whose chroma carries the luma's co-sited detail (Cb =
+    Y[::2, ::2], Cr its complement): content on which CC-ALF turns on."""
+    mx = (1 << f.bit_depth) - 1
+    cb = f.y[::2, ::2].astype(np.int32)
+    return frame_cls(f.y, cb, (mx - cb).astype(np.int32), f.bit_depth)
+
+
+def _frames(w, h, bit_depth, n, cosited_last, frame_cls, synth):
+    """n synthetic frames (scaled to bit_depth); with cosited_last the
+    last one carries co-sited chroma."""
+    out = []
+    for t in range(n):
+        f = synth(w, h, t)
+        s = bit_depth - 8
+        f = frame_cls(f.y << s, f.cb << s, f.cr << s, bit_depth)
+        out.append(_cosited(f, frame_cls) if cosited_last and t == n - 1
+                   else f)
+    return out
+
+
+@pytest.mark.usefixtures("release_jax_programs")
+@pytest.mark.parametrize("cols,bit_depth,n", [(1, 8, 2), (2, 8, 2),
+                                              (1, 10, 1)],
+                         ids=["single_tile", "two_tile_cols", "ten_bit"])
+def test_lossy_encode_sequence_byte_equal_and_decodes(cols, bit_depth, n):
+    """Lossy encode_sequence with vvc's defaults (MTS, MIP, LFNST, CCLM,
+    deblocking, SAO, ALF, CC-ALF) at QP 32 on 128×64: the AI pipeline
+    (one tile, chroma planes given to the dispatched search) and the tile
+    path (rdo_partition_tiled).  Streams and recons equal vvc's, the
+    stream decodes with MD5 OK, and the filters act: SAO with EO and BO,
+    a luma ALF filter with CTU flags on, the chroma ALF filter, CC-ALF on
+    a plane (the single-tile case, whose second frame has co-sited
+    chroma)."""
+    from vvc.io.yuv import Frame
+    from vvc_torch.enc.encoder import encode_sequence as port_encode
+    from vvc_torch.io.synth import synth_frame as port_synth_frame
+    from vvc_torch.io.yuv import Frame as PortFrame
+    w, h = 128, 64
+    frames = _frames(w, h, bit_depth, n, cols == 1 and n > 1, Frame,
+                     synth_frame)
+    port_frames = _frames(w, h, bit_depth, n, cols == 1 and n > 1,
+                          PortFrame, port_synth_frame)
+    want, want_rec, _ = ref_encode(frames, qp=32, bit_depth=bit_depth,
+                                   num_tile_cols=cols)
+    got, recons, stats = port_encode(port_frames, qp=32,
+                                     bit_depth=bit_depth,
+                                     num_tile_cols=cols, device="cpu")
+    assert got == want
+    for a, b in zip(want_rec, recons):
+        for p, q in ((a.y, b.y), (a.cb, b.cb), (a.cr, b.cr)):
+            np.testing.assert_array_equal(p, q)
+    dec, info = decode_stream(got)
+    assert len(info["hash_ok"]) == n and all(info["hash_ok"])
+    for r, d in zip(recons, dec):
+        for p, q in ((r.y, d.y), (r.cb, d.cb), (r.cr, d.cr)):
+            np.testing.assert_array_equal(p, q)
+    assert all(s["n_tiles"] == cols and 25 < s["psnr_y"] < 60 for s in stats)
+    sao = np.sum([s["sao_types"] for s in stats], axis=0)   # [comp, type]
+    alf = [s["alf"] for s in stats]
+    assert sao[:, 2].sum() > 0                               # EO
+    if cols == 1 and n > 1:
+        assert any(a["luma_filters"] and a["ctu_on"] for a in alf)
+        assert sao[:, 1].sum() > 0                           # BO
+        assert any(a["chroma"] for a in alf)
+        assert any(a["ccalf_cb"] or a["ccalf_cr"] for a in alf)

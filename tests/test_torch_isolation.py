@@ -1,7 +1,8 @@
 """vvc_torch stands alone: after importing it and running tiny CPU
 encodes — lossless encode_sequence, a lossy Encoder.encode_frame with
-MTS, MIP and deblocking, and one with LFNST and CCLM too — no JAX module and no module of the JAX package
-`vvc` is loaded; and the entry points, given no device, ask for CUDA and
+MTS, MIP and deblocking, one with LFNST and CCLM too, and a lossy
+encode_sequence with the default tool set (SAO, ALF and CC-ALF on) — no
+JAX module and no module of the JAX package `vvc` is loaded; and the entry points, given no device, ask for CUDA and
 raise where CUDA is absent instead of falling back to the CPU."""
 import json
 import os
@@ -30,9 +31,13 @@ sps2b = SPS(width=64, height=64, deblocking=True, mts_intra=True, mip=True,
 nals, rec, stats = Encoder(sps2b, PPS(init_qp=32),
                            device="cpu").encode_frame(frames[1], 1)
 lossy_ok = lossy_ok and bool(len(nals) == 2 and 20 < stats["psnr_y"] < 60)
+bs3, _, stats3 = encode_sequence(frames, qp=32, device="cpu")
+lossy_ok = lossy_ok and bool(len(bs3) > 0 and all(
+    "alf" in s and "sao_types" in s for s in stats3))
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
+                 lambda: encode_sequence(frames, qp=32),
                  lambda: Encoder(sps, PPS(init_qp=32))):
         try:
             call()
@@ -59,7 +64,8 @@ def test_port_imports_no_jax_and_no_vvc():
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
         "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
-        "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one")}
+        "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one",
+        "sao_stats", "alf_stats")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 2
+        assert len(res["raised"]) == 3
         assert all("CUDA is not available" in r for r in res["raised"])

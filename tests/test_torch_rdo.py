@@ -491,3 +491,52 @@ def test_chroma_plane_sums_and_cb_cr_add(port, cs):
         (torch.from_numpy(a) + torch.from_numpy(b)).numpy().view(np.int32),
         add.view(np.int32))
     assert (add.astype(np.int64) != a.astype(np.int64) + b).any()
+
+
+@pytest.fixture(scope="module")
+def ref_frames():
+    """vvc's jitted vmapped search (eval_all_sizes_frames) at 10 bit with
+    chroma, memoised per (geometry, content)."""
+    cache = {}
+
+    def get(vec, w, h, f):
+        key = (w, h, f, vec.tobytes())
+        if key not in cache:
+            cache[key] = np.asarray(ref.eval_all_sizes_frames(
+                jnp.asarray(vec), SHAPES, jnp.int32(32), 10, w, h, f, False,
+                True, True, False))
+        return cache[key]
+    return get
+
+
+@pytest.mark.usefixtures("release_jax_programs")
+@pytest.mark.parametrize("w,h,seeds", [(64, 64, (0, 2)), (64, 128, (0, 2))],
+                         ids=["64x64_tiles", "64x128_tiles"])
+def test_tiled_chroma_sums_above_2_24_bit_equal(port, monkeypatch,
+                                                 ref_frames, w, h, seeds):
+    """The chroma sums of vvc's vmapped tile program (2 tile columns, the
+    path of rdo_partition_tiled) on 10-bit tied content, whose sums pass
+    2^24 and whose decisions rest on their float32 order: the packed
+    vectors bit-equal.  With the single-frame orders instead (as the port
+    took them before), the vectors differ."""
+    import torch
+    from tests.sweep_torch_chroma_orders import planes
+    impl = port._eval_all_sizes_impl
+    old = 0
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        tiles = [planes(w, h, rng, "tied") for _ in range(2)]
+        vec = ref.pack_planes(*(np.stack(p) for p in zip(*tiles)))
+        want = ref_frames(vec, w, h, 2)
+        got = port.eval_all_sizes_frames(
+            torch.from_numpy(vec), SHAPES, 32, 10, w, h, 2, False, True,
+            True, False).numpy()
+        np.testing.assert_array_equal(got, want[:, :got.shape[1]])
+        with monkeypatch.context() as m:
+            m.setattr(port, "_eval_all_sizes_impl",
+                      lambda *a, **k: impl(*a, **{**k, "vmapped": False}))
+            alt = port.eval_all_sizes_frames(
+                torch.from_numpy(vec), SHAPES, 32, 10, w, h, 2, False, True,
+                True, False).numpy()
+        old += int((alt != got).sum())
+    assert old > 0

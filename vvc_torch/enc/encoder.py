@@ -1,14 +1,15 @@
 """All-Intra encoder: frames → Annex-B bitstream + reconstruction.
 
 Port of vvc/enc/encoder.py (`Encoder`, `encode_sequence`) with `device`
-threaded through to the RDO search, which is the only device work.  It
-runs lossless All-Intra (slice 1) and, through `Encoder.encode_frame`,
-lossy All-Intra with MTS, MIP and deblocking (slice 2a), LFNST and the
-device chroma decision, CCLM (slice 2b).  The options of later slices
-raise NotImplementedError naming their slice: MTT, ISP, MRL, LMCS,
-dependent quantization and WPP (2c), SAO and ALF (3), inter (4).
-`encode_sequence(lossless=False)` raises too: its SPS turns on SAO and
-ALF.  Everything after the search is the host code of vvc, copied.
+threaded through to the RDO search and the SAO/ALF encoder statistics,
+the only device work.  It runs lossless All-Intra (slice 1) and lossy All-Intra with MTS, MIP and
+deblocking (slice 2a), LFNST and the device chroma decision, CCLM (slice
+2b), and SAO, ALF and CC-ALF (slice 3), whose encoder statistics run on
+the device (csrc/sao_stats.cu, csrc/alf_stats.cu) — the default lossy
+tool set of `encode_sequence`.  The options of later slices raise
+NotImplementedError naming their slice: MTT, ISP, MRL, LMCS, dependent
+quantization and WPP (2c), inter (4), rate control.  Everything after the
+search is the host code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -37,13 +38,19 @@ from vvc_torch.common.types import NalUnitType, SliceType
 from vvc_torch.io.nal import NalUnit, write_annexb
 from vvc_torch.io.yuv import Frame, psnr
 from vvc_torch.hls.ps import SPS, PPS, SliceHeader
+from vvc_torch.hls.aps import write_aps_alf
 from vvc_torch.hls.write import write_sps, write_pps, write_slice_header
 from vvc_torch.packer import native as native_packer
 from vvc_torch.cabac.ctx import SliceContexts
 from vvc_torch.cabac.cu_syntax import TreeWriter
 from vvc_torch.model.frame import CodingState
 from vvc_torch.model.recon import reconstruct_leaves
+from vvc_torch.kernels.alf import apply_alf_plane, apply_delta_gated
+from vvc_torch.kernels.ccalf import apply_ccalf_delta, derive_ccalf
 from vvc_torch.kernels.deblock import deblock_frame
+from vvc_torch.kernels.sao import SAO_BO, SAO_EO, SAO_OFF, sao_filter_plane
+from vvc_torch.enc.alf_enc import decide_alf_frame
+from vvc_torch.enc.sao_enc import decide_sao_frame
 from vvc_torch.utils.trace import active as _trace
 from vvc_torch.enc.rdo import (rdo_partition, rdo_partition_dispatch,
                                rdo_partition_finish, rdo_partition_frames,
@@ -58,15 +65,12 @@ def _not_in_slice(what: str, slice_name: str):
 
 
 _SLICE_2C = "slice 2c (MTT, ISP, MRL, LMCS, dependent quantization, WPP)"
-_SLICE_3 = "slice 3 (SAO and ALF statistics)"
+_RATE_CONTROL = ("the rate-control item of ROADMAP queue 1 (host ratectrl "
+                 "and the frame-batched search's chroma orders)")
 
 
 def _check_sps(sps: SPS, pps: PPS) -> None:
     """Raise for every SPS/PPS option outside the ported slices."""
-    if not sps.lossless:
-        for on, what in ((sps.sao, "SAO"), (sps.alf, "ALF")):
-            if on:
-                raise _not_in_slice(what, _SLICE_3)
     for on, what in ((sps.max_mtt_depth_intra > 0, "MTT"),
                      (sps.isp, "ISP"), (sps.mrl, "MRL"),
                      (sps.lmcs, "LMCS"),
@@ -133,10 +137,11 @@ class Encoder:
                                dep_quant=sps.dep_quant,
                                pred_cache=preds if preds else None)
 
-    def _entropy_tile_native(self, leaves_t, size_map, tx0, tx1, qp):
-        """Native C++ tree-syntax writer (intra slices, no SAO parameters
-        until slice 3): one call per tile (vvc_torch/packer/cabac_core.cpp
-        tw_write), as vvc's encoder does."""
+    def _entropy_tile_native(self, leaves_t, size_map, tx0, tx1, qp,
+                             sao_ser):
+        """Native C++ tree-syntax writer (intra slices): one call per tile
+        (vvc_torch/packer/cabac_core.cpp tw_write), as vvc's encoder does;
+        sao_ser: the serialized SAO parameters or None."""
         sps = self.sps
         ctxs = SliceContexts(qp)
         enc = native_packer.NativeBinEncoder(ctxs)
@@ -144,7 +149,8 @@ class Encoder:
         tw = native_packer.NativeTreeWriter(
             min(tx1, sps.width), sps.height, sps.ctu_size, sps.min_cu_size,
             mts=sps.mts_intra, cclm=sps.cclm, mip=sps.mip, lfnst=sps.lfnst)
-        tw.write(enc, ctxs, size_map, recs, levels, None, 0,
+        sao_arr, stride = sao_ser if sao_ser is not None else (None, 0)
+        tw.write(enc, ctxs, size_map, recs, levels, sao_arr, stride,
                  tx0, tx1, 0, sps.height, tx0)
         enc.encode_bin_trm(1)
         return enc.finish()
@@ -191,6 +197,34 @@ class Encoder:
                 writer.write_ctu(cx, cy)
         enc.encode_bin_trm(1)
         return enc.finish()
+
+    def _alf(self, frame, recon, qp):
+        """ALF decision and apply, then CC-ALF for Cb and Cr, in place on
+        recon (vvc/enc/encoder.py:446-473).  Returns the slice's ALF
+        parameters (luma, CTU flag list, chroma, cc_cb, cc_cr)."""
+        sps = self.sps
+        bd = sps.bit_depth
+        luma_c, flags, chroma_c, luma_delta = decide_alf_frame(
+            (frame.y, frame.cb, frame.cr), recon, qp, bd, sps.ctu_size,
+            device=self.device)
+        flag_list = [flags[(x0, y0)]
+                     for y0 in range(0, sps.height, sps.ctu_size)
+                     for x0 in range(0, sps.width, sps.ctu_size)]
+        if luma_c is not None:
+            apply_delta_gated(recon[0], luma_delta, bd, flags, sps.ctu_size)
+        if chroma_c is not None:
+            apply_alf_plane(recon[1], chroma_c, 2, bd)
+            apply_alf_plane(recon[2], chroma_c, 2, bd)
+        # CC-ALF: additive chroma correction filtered from the final luma
+        # (reference: applyCcAlfFilter; vvc_torch.kernels.ccalf)
+        cc_cb = derive_ccalf(frame.cb, recon[1], recon[0], bd)
+        if cc_cb is not None:
+            recon[1][:] = apply_ccalf_delta(recon[1], recon[0], cc_cb, bd)
+        cc_cr = derive_ccalf(frame.cr, recon[2], recon[0], bd)
+        if cc_cr is not None:
+            recon[2][:] = apply_ccalf_delta(recon[2], recon[0], cc_cr, bd)
+        return (luma_c, flag_list if luma_c is not None else None,
+                chroma_c, cc_cb, cc_cr)
 
     def encode_frame(self, frame: Frame, poc: int, rdo_result=None,
                      slice_type=SliceType.I, refs_l0=(), refs_l1=(),
@@ -253,14 +287,28 @@ class Encoder:
                 for i in range(len(tiles)):
                     recon_tile(i)
 
-        # phase 2: in-loop deblocking (lossless has no loop filters; SAO
-        # and ALF arrive with slice 3)
+        # phase 2: in-loop filters in the reference order: deblock → SAO →
+        # ALF → CC-ALF (lossless has none)
+        sao_params = alf_hdr = None
         with perf.phase("filters"):
             if sps.deblocking and not sps.lossless:
                 with perf.phase("filt_deblock"):
                     deblock_frame(recon, leaves, qp, bd,
                                   tile_x_bounds=tuple(t[0] for t in cols[1:]),
                                   tile_y_bounds=tuple(t[0] for t in rows[1:]))
+            if sps.sao and not sps.lossless:
+                with perf.phase("filt_sao"):
+                    sao_params = decide_sao_frame(
+                        (frame.y, frame.cb, frame.cr), recon, qp, bd,
+                        sps.ctu_size, tiles, device=self.device)
+                    for comp in range(3):
+                        per_comp = {k: v[comp] for k, v in sao_params.items()}
+                        sao_filter_plane(recon[comp], per_comp, sps.ctu_size,
+                                         bd, tiles,
+                                         comp_scale=0 if comp == 0 else 1)
+            if sps.alf and not sps.lossless:
+                with perf.phase("filt_alf"):
+                    alf_hdr = self._alf(frame, recon, qp)
 
         # phase 3: entropy per tile (parallel).  As in vvc, lossy intra
         # slices run the native C++ tree writer; lossless, other CTU sizes,
@@ -270,14 +318,17 @@ class Encoder:
         if use_native:
             size_map = native_packer.build_size_map(
                 leaves, sps.width, sps.height, sps.min_cu_size)
+            sao_ser = (native_packer.serialize_sao(
+                sao_params, sps.width, sps.height, sps.ctu_size)
+                if sao_params is not None else None)
 
         def entropy_tile(i):
             tx0, tx1, ty0, ty1 = tiles[i]
             if use_native:
                 return self._entropy_tile_native(
-                    leaves_per_tile[i], size_map, tx0, tx1, qp)
+                    leaves_per_tile[i], size_map, tx0, tx1, qp, sao_ser)
             return self._entropy_tile(split_map, leaf_map, tx0, tx1, qp,
-                                      None, ty0=ty0, ty1=ty1)
+                                      sao_params, ty0=ty0, ty1=ty1)
 
         with perf.phase("entropy"):
             if self.parallel_tiles and len(tiles) > 1:
@@ -289,11 +340,31 @@ class Encoder:
         sh = SliceHeader(pps.pps_id, int(slice_type), poc, qp,
                          retained_deltas=tuple(poc - p
                                                for p in retained_pocs))
+        # ALF parameters ride an APS NAL ahead of the slice (reference:
+        # EncGOP xWriteAPS; ids cycle per picture like the reference's ALF
+        # APS pool)
+        aps_nals = []
+        alf_aps_id = 0
+        alf_sh = None
+        if alf_hdr is not None:
+            luma_c, flag_list, chroma_c, cc_cb, cc_cr = alf_hdr
+            if (luma_c is not None or chroma_c is not None
+                    or cc_cb is not None or cc_cr is not None):
+                alf_aps_id = poc % 32
+                aps_nals.append(NalUnit(NalUnitType.PREFIX_APS,
+                                        write_aps_alf(alf_aps_id, luma_c,
+                                                      chroma_c, cc_cb,
+                                                      cc_cr)))
+            alf_sh = (luma_c is not None or None, flag_list,
+                      (chroma_c is not None or cc_cb is not None
+                       or cc_cr is not None) or None)
         header = write_slice_header(sh, pps.init_qp,
                                     entry_sizes=[len(s) for s in substreams],
-                                    lmcs_enabled=sps.lmcs)
+                                    alf=alf_sh if sps.alf else None,
+                                    lmcs_enabled=sps.lmcs,
+                                    alf_aps_id=alf_aps_id)
         slice_rbsp = header + b"".join(substreams)
-        nals = [
+        nals = aps_nals + [
             NalUnit(NalUnitType.IDR_N_LP, slice_rbsp),
             NalUnit(NalUnitType.SUFFIX_SEI, _hash_sei_payload(recon, bd))]
         rec_frame = Frame(*recon, bd)
@@ -306,6 +377,18 @@ class Encoder:
             "n_cu": len(leaves),
             "n_tiles": len(tiles),
         }
+        if sao_params is not None:
+            # CTUs per SAO type (OFF, BO, EO) for Y, Cb, Cr
+            stats["sao_types"] = [
+                [sum(p[c].mode == m for p in sao_params.values())
+                 for m in (SAO_OFF, SAO_BO, SAO_EO)] for c in range(3)]
+        if alf_hdr is not None:
+            luma_c, flag_list, chroma_c, cc_cb, cc_cr = alf_hdr
+            stats["alf"] = {
+                "luma_filters": 0 if luma_c is None else len(luma_c[0]),
+                "ctu_on": sum(flag_list) if flag_list else 0,
+                "chroma": chroma_c is not None,
+                "ccalf_cb": cc_cb is not None, "ccalf_cr": cc_cr is not None}
         return nals, rec_frame, stats
 
 
@@ -331,8 +414,9 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
 
     Same signature as vvc.enc.encoder.encode_sequence plus `device`:
     None = CUDA (raises when CUDA is absent), "cpu" = the plain PyTorch
-    path.  It runs mode="ai" with lossless=True; other modes, lossy
-    coding (whose SPS needs slice 3), rate control, the sharded path and
+    path.  It runs mode="ai", lossless or lossy with vvc's default lossy
+    tool set (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF); other
+    modes, the options of slice 2c, rate control, the sharded path and
     checkpointing raise NotImplementedError naming the slice that brings
     them.
     recons/stats are returned in display (POC) order."""
@@ -340,16 +424,10 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
 
     if mode != "ai":
         raise _not_in_slice(f"mode={mode!r}", "the inter slice")
-    if not lossless:
-        raise _not_in_slice(
-            "lossless=False (its SPS turns on SAO and ALF)",
-            f"{_SLICE_3}; lossy All-Intra with MTS, MIP, LFNST, CCLM and "
-            "deblocking runs through Encoder.encode_frame")
     if wpp:
         raise _not_in_slice("WPP row substreams", _SLICE_2C)
     if target_kbps > 0:
-        raise _not_in_slice("rate control",
-                            f"lossy encode_sequence, after {_SLICE_3}")
+        raise _not_in_slice("rate control", _RATE_CONTROL)
     if _precomputed_rdo is not None:
         raise _not_in_slice("the sharded search", "the multi-GPU slice")
     if checkpoint_path or resume:
@@ -374,6 +452,7 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
               bcw=bcw and mode == "ra" and not lossless)
     pps = PPS(init_qp=qp, num_tile_cols=num_tile_cols,
               num_tile_rows=num_tile_rows, wpp=wpp)
+    _check_sps(sps, pps)
     enc = Encoder(sps, pps, parallel_tiles, device)
     nals = [NalUnit(NalUnitType.SPS, write_sps(sps)),
             NalUnit(NalUnitType.PPS, write_pps(pps))]
@@ -389,6 +468,7 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         handles = [rdo_partition_dispatch(
             f.y, qp, bit_depth, sps.ctu_size, sps.min_cu_size,
             lossless=lossless, lfnst=sps.lfnst,
+            chroma_planes=(f.cb, f.cr) if sps.cclm else None,
             mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp, device=enc.device)
             for f in frames]
 
@@ -414,6 +494,8 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         rdo_results = rdo_partition_frames(
             [f.y for f in frames], qp, bit_depth, sps.ctu_size,
             sps.min_cu_size, lossless=lossless, lfnst=sps.lfnst,
+            chroma_planes=(([f.cb for f in frames], [f.cr for f in frames])
+                           if sps.cclm else None),
             mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp, device=enc.device)
     else:
         rdo_results = None   # per-tile search inside encode_frame

@@ -304,13 +304,15 @@ def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int):
     return _fma_f32(lam, rate + extra_bits, sse)
 
 
-def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None) -> torch.Tensor:
+def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None,
+             **order) -> torch.Tensor:
     """Σ d² per block as vvc's float32 `jnp.sum` gives it.  The integer sum
     is exact; while it stays below 2^24 every float32 partial sum is an
     exact integer whatever the order, so the cast is the answer.  Larger
     sums (rare: a 32×32 block needs a mean squared error above 16384) take
     XLA's summation order: `xla_block_sum`'s, with its row lanes where
-    `row_lanes` says so (by default at 8×8, the luma SSE's order)."""
+    `row_lanes` says so (by default at 8×8, the luma SSE's order), or its
+    `tail` order where `order` says so."""
     dl = d.to(torch.int64)
     exact = (dl * dl).sum(dim=(1, 2))
     out = exact.to(torch.float32)
@@ -319,7 +321,7 @@ def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None) -> torch.Tensor:
         dd = d[big].to(torch.float32)
         if row_lanes is None:
             row_lanes = d.shape[-1] == 8
-        out[big] = xla_block_sum(dd * dd, row_lanes=row_lanes)
+        out[big] = xla_block_sum(dd * dd, row_lanes=row_lanes, **order)
     return out
 
 
@@ -349,7 +351,8 @@ def _min_argmin(cost: torch.Tensor):
 
 def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
                       xs: torch.Tensor, ys: torch.Tensor, size: int,
-                      best_mode: torch.Tensor, bit_depth: int) -> torch.Tensor:
+                      best_mode: torch.Tensor, bit_depth: int,
+                      vmapped: bool = False) -> torch.Tensor:
     """Device 4-way chroma decision (DM / LM / LM_L / LM_T) for N blocks of
     luma size `size` at (xs, ys): SSE on the original chroma samples, cb
     and cr costs added, argmin with the first index winning a tie.  Port of
@@ -369,15 +372,24 @@ def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
     the rows at 8×8 and 16×16, and at 32×32 only where its model is the
     no-neighbour constant (0, 2^(bd-1)) for every block of the grid: when
     no block has a row above (LM_T), or a column to its left (LM_L), or
-    neither (all three).  vvc's vmapped tile program
-    (`eval_all_sizes_frames`) lays its gathers out otherwise and sums some
-    of them in other orders, which the port does not follow (ROADMAP §3)."""
+    neither (all three).
+
+    vmapped: the orders of vvc's vmapped tile program
+    (`eval_all_sizes_frames`, read from its LLVM IR at F = 2 and 3 on 64×64
+    and 64×128 tiles), whose gathers put the tile index minor.  There the
+    DM sum at 16×16 and 32×32 takes `xla_block_sum`'s `tail` order (all
+    columns but the last 8 lane-wise, then those 8 one by one); so does an
+    LM sum at 32×32 whose model is not the constant; the other LM sums run
+    along the rows, as in the single-frame program."""
     cs = size >> 1
     cxs, cys = xs >> 1, ys >> 1
     no_top = not bool((ys > 0).any())
     no_left = not bool((xs > 0).any())
     const = {1: no_top and no_left, 2: no_left, 3: no_top}
     lm_rows = {v: cs <= 16 or const[v] for v in const}
+    dm_order = {"tail": True} if vmapped and cs >= 16 else {}
+    lm_order = {v: {"tail": True} if vmapped and not lm_rows[v] else {}
+                for v in const}
     dm = torch.where(best_mode >= 67, 0, best_mode).to(torch.int32)
     o = torch.arange(cs, device=xs.device)
     iy = (cys.long()[:, None, None] + o[None, :, None])
@@ -389,13 +401,14 @@ def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
         refs = build_ref_lines_device(plane, cxs, cys, cs, bit_depth)
         pdm = predict_modes_batch(refs, dm, cs, bit_depth)
         obs = plane[iy, ix]
-        sums = [_sse_f32(obs - pdm, row_lanes=False)]
+        sums = [_sse_f32(obs - pdm, row_lanes=False, **dm_order)]
         for v in (1, 2, 3):
             alpha, beta = derive_models_batch_dev(ds, plane, cxs, cys, cs,
                                                   bit_depth, v)
             plm = ((alpha[:, None, None] * ds_blk >> CCLM_SHIFT)
                    + beta[:, None, None]).clamp(0, maxv)
-            sums.append(_sse_f32(obs - plm, row_lanes=lm_rows[v]))
+            sums.append(_sse_f32(obs - plm, row_lanes=lm_rows[v],
+                                 **lm_order[v]))
         plane_cost = torch.stack(sums, dim=1)                   # [N,4] f32
         cost = plane_cost if cost is None else cost + plane_cost
     return torch.argmin(cost, dim=1).to(torch.int32)
@@ -405,10 +418,11 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                     ny: int, nx: int, mts_enabled: bool = True,
                     lossless: bool = False, lfnst_enabled: bool = True,
                     chroma=None, h: int | None = None,
-                    isp_enabled: bool = False):
+                    isp_enabled: bool = False, vmapped: bool = False):
     """Whole-frame single-size evaluation: plane [H,W] int32 →
     (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32).
-    chroma: optional (cb, cr, ds) planes for the device chroma decision."""
+    chroma: optional (cb, cr, ds) planes for the device chroma decision;
+    vmapped: take the chroma sum orders of vvc's vmapped program."""
     if isp_enabled and not lossless:
         raise _slice2c("ISP")
     s = size
@@ -432,13 +446,15 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
     cmode = z
     if chroma is not None:
         cb, cr, ds = chroma
-        cmode = eval_chroma_modes(cb, cr, ds, xs, ys, s, mode, bit_depth)
+        cmode = eval_chroma_modes(cb, cr, ds, xs, ys, s, mode, bit_depth,
+                                  vmapped)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
             lfnst.reshape(ny, nx), cmode.reshape(ny, nx), z.reshape(ny, nx))
 
 
 def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
-                         lfnst=True, cb=None, cr=None, isp=False):
+                         lfnst=True, cb=None, cr=None, isp=False,
+                         vmapped=False):
     # the downsampled luma of this frame or tile (a tile's own plane, so
     # its left column clamps at the tile edge, as vvc's vmap over tiles)
     chroma = None if cb is None else (cb, cr, luma_ds_plane_dev(plane))
@@ -450,7 +466,7 @@ def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                                             lossless=lossless,
                                             lfnst_enabled=lfnst,
                                             chroma=chroma, h=bh,
-                                            isp_enabled=isp)
+                                            isp_enabled=isp, vmapped=vmapped)
     if _tt_descriptors(sizes):
         raise _slice2c("TT middle-child planes (MTT)")
     return out
@@ -495,14 +511,15 @@ def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
                           with_chroma: bool = False,
                           isp: bool = False) -> torch.Tensor:
     """[F] frames (or tile columns) → [F, per-frame packed length] int32.
-    The JAX program's vmap over frames is a frame loop here."""
+    The JAX program's vmap over frames is a frame loop here; with F > 1 its
+    chroma sums take the vmapped program's orders (eval_chroma_modes)."""
     _check_options(lossless, isp)
     y, cb, cr = _split_planes(planes_vec, w, h, with_chroma, f)
     return torch.stack([
         _pack_results(_eval_all_sizes_impl(
             y[i], sizes, int(qp), bit_depth, w, h, lossless, lfnst,
-            None if cb is None else cb[i], None if cr is None else cr[i]),
-            sizes)
+            None if cb is None else cb[i], None if cr is None else cr[i],
+            vmapped=f > 1), sizes)
         for i in range(f)])
 
 

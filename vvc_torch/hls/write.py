@@ -61,9 +61,8 @@ def write_slice_header(sh: SliceHeader, init_qp: int,
     entry_sizes: byte lengths of the tile substreams; all but the last are
     written as entry-point offsets (spec sh_entry_point_offset_minus1).
     alf: (luma_present, ctu_flag_list|None, chroma_present) — the FILTERS
-    ride APS NALs (spec 7.3.2.5; the port writes none before ALF and LMCS
-    arrive); the header carries only the
-    activation flags + referenced aps id (spec sh_alf_aps_id_luma) and the
+    ride APS NALs (vvc_torch.hls.aps, spec 7.3.2.5); the header carries
+    only the activation flags + referenced aps id (spec sh_alf_aps_id_luma) and the
     per-CTU on/off flags ([verify]: spec codes alf_ctb_flag in CABAC slice
     data; kept as header bits here)."""
     bw = BitWriter()

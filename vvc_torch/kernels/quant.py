@@ -157,15 +157,32 @@ def _tree8(r: torch.Tensor) -> torch.Tensor:
             + ((r[..., 1] + r[..., 5]) + (r[..., 3] + r[..., 7])))
 
 
-def xla_block_sum(x: torch.Tensor, row_lanes: bool = False) -> torch.Tensor:
+def xla_block_sum(x: torch.Tensor, row_lanes: bool = False,
+                  tail: bool = False) -> torch.Tensor:
     """[M, S, S] float32 → [M] float32, summed in XLA-CPU's order.
     row_lanes (S ≤ 32): vectorised the other way round — lane v sums rows
     v, v+8, ... left to right, then the 8 lanes meet in the same halving
     tree.  The order of the 8×8 SSE, of the LFNST stage's 8×8 rate and of
-    the chroma decision's CCLM sums."""
+    the chroma decision's CCLM sums.
+    tail (S = 16, 32): row by row, columns 0..S-9 lane-wise (lane v sums
+    columns v, v+8, ..., the running total joining lane 0), the halving
+    tree, then the last 8 columns added one by one — the order of some
+    chroma sums in the vmapped tile program."""
     m, s, s2 = x.shape
     assert s == s2 and s in (8, 16, 32, 64), x.shape
     x = x.to(torch.float32)
+    if tail:
+        assert s in (16, 32), x.shape
+        tot = torch.zeros((m,), dtype=torch.float32, device=x.device)
+        for v in range(s):
+            lanes = x[:, v, 0:8].clone()
+            lanes[:, 0] = tot + x[:, v, 0]
+            for p in range(8, s - 8, 8):
+                lanes = lanes + x[:, v, p:p + 8]
+            tot = _tree8(lanes)
+            for j in range(s - 8, s):
+                tot = tot + x[:, v, j]
+        return tot
     if row_lanes:
         assert s <= 32, x.shape
         acc = x[:, 0:8, 0]

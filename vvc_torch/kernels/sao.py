@@ -6,6 +6,11 @@ SAOProcess / offsetBlock; OpenVVC libovvc/rcn_sao.c).  SURVEY.md §2.2:
 "elementwise classify+add" — edge-offset classification is two shifted
 compares and a LUT add, fully vectorized over each CTU region (numpy).
 
+The encoder's per-CTU statistics (`sao_stats_dev`, the port of
+vvc/kernels/sao.py:157) run on the device: on a CUDA tensor they launch
+the kernel of vvc_torch/csrc/sao_stats.cu, on a CPU tensor or inside
+`ops.plain()` they run their plain PyTorch twin.
+
 Per-CTU parameters (vvc_torch.model.frame.SaoParams): mode OFF/BO/EO, EO class
 (0°,90°,135°,45°), band position, and 4 offsets.  Classification reads the
 *pre-SAO* (deblocked) picture — callers pass a snapshot `src` and mutate
@@ -14,9 +19,13 @@ tile edge, since loop-filter-across-tiles is off) are left unfiltered.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
+import torch
+
+from vvc_torch import ops
 
 SAO_OFF, SAO_BO, SAO_EO = 0, 1, 2
 # EO direction (dx, dy) per class: 0°, 90°, 135°, 45°
@@ -145,3 +154,103 @@ def sao_filter_plane(plane: np.ndarray, ctu_params: dict, ctu_size: int,
                 lim = (t0, min(t1, w), r0, min(r1, h))
                 break
         apply_sao_region(plane, src, p, x0, y0, rw, rh, bit_depth, *lim)
+
+
+# ------------------------------------------------------------------
+# device-side encoder statistics
+# ------------------------------------------------------------------
+
+def _eo_signs(rec: torch.Tensor, ec: int) -> torch.Tensor:
+    """sign(c − a) + sign(c − b) of the EO class `ec` neighbours a, b,
+    taken from the edge-replicated plane, as vvc's jnp.pad(mode="edge")."""
+    h, w = rec.shape
+    dx, dy = EO_DIRS[ec]
+    ys = torch.arange(h, device=rec.device)
+    xs = torch.arange(w, device=rec.device)
+    ya, yb = (ys - dy).clamp(0, h - 1), (ys + dy).clamp(0, h - 1)
+    xa, xb = (xs - dx).clamp(0, w - 1), (xs + dx).clamp(0, w - 1)
+    na = rec[ya][:, xa]
+    nb = rec[yb][:, xb]
+    return torch.sign(rec - na) + torch.sign(rec - nb)
+
+
+def sao_stats_plain(orig: torch.Tensor, rec: torch.Tensor,
+                    validx: torch.Tensor, validy: torch.Tensor, cs: int,
+                    bit_depth: int):
+    """Plain twin of vvc/kernels/sao.py:157 sao_stats_dev.  Per-CTU sums
+    of orig − rec and counts, per EO class and category (sign sum −2, −1,
+    1, 2; positions whose neighbour along the class crosses a column with
+    validx False or a row with validy False are category 0) and per band
+    (rec >> (bd − 5)), as int64 scatter-adds over a (CTU, category) key,
+    then float32.  Every partial sum is an integer below
+    cs² · (2^bd − 1) < 2^24 (bd ≤ 12), so vvc's float32 block sums are
+    exact in any order and equal to these.
+    → (eo_d [4,4,ny,nx], eo_n, bo_d [ny,nx,32], bo_n) float32."""
+    h, w = orig.shape
+    dev = orig.device
+    ny, nx = -(-h // cs), -(-w // cs)
+    diff = (orig - rec).to(torch.int64).reshape(-1)
+    one = torch.ones_like(diff)
+    ctu = ((torch.arange(h, device=dev) // cs)[:, None] * nx
+           + (torch.arange(w, device=dev) // cs)[None, :]).reshape(-1)
+
+    def sums(key, nbin):
+        d = torch.zeros(ny * nx * nbin, dtype=torch.int64, device=dev)
+        n = torch.zeros_like(d)
+        d.index_add_(0, key, diff)
+        n.index_add_(0, key, one)
+        return (d.reshape(ny, nx, nbin).to(torch.float32),
+                n.reshape(ny, nx, nbin).to(torch.float32))
+
+    cat_of = torch.tensor([1, 2, 0, 3, 4], dtype=torch.int64, device=dev)
+    eo_d, eo_n = [], []
+    for ec, (dx, dy) in enumerate(EO_DIRS):
+        cat = cat_of[(_eo_signs(rec, ec) + 2).to(torch.int64)]
+        valid = torch.ones((h, w), dtype=torch.bool, device=dev)
+        if dx:
+            valid = valid & validx[None, :]
+        if dy:
+            valid = valid & validy[:, None]
+        cat = torch.where(valid, cat, 0).reshape(-1)
+        d, n = sums(ctu * 5 + cat, 5)
+        eo_d.append(d[..., 1:].permute(2, 0, 1))
+        eo_n.append(n[..., 1:].permute(2, 0, 1))
+    band = (rec >> (bit_depth - 5)).to(torch.int64).reshape(-1)
+    bo_d, bo_n = sums(ctu * 32 + band, 32)
+    return (torch.stack(eo_d).contiguous(), torch.stack(eo_n).contiguous(),
+            bo_d, bo_n)
+
+
+def _sao_stats_cuda(orig, rec, validx, validy, cs: int, bit_depth: int):
+    ops.check_cuda_i32("sao_stats", orig, rec)
+    h, w = orig.shape
+    ny, nx = -(-h // cs), -(-w // cs)
+    vx = validx.to(device=orig.device, dtype=torch.uint8).contiguous()
+    vy = validy.to(device=orig.device, dtype=torch.uint8).contiguous()
+    # [ny, nx, 96]: 16 EO sums (class-major), 16 EO counts, 32 BO sums,
+    # 32 BO counts
+    out = torch.empty((ny, nx, 96), dtype=torch.float32, device=orig.device)
+    fn = ops.lib("sao_stats").sao_stats_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(orig.data_ptr(), rec.data_ptr(), vx.data_ptr(), vy.data_ptr(),
+             h, w, cs, bit_depth, out.data_ptr(), ops.stream_ptr(orig))
+    ops.launched("sao_stats", err)
+    eo_d = out[..., 0:16].reshape(ny, nx, 4, 4).permute(2, 3, 0, 1)
+    eo_n = out[..., 16:32].reshape(ny, nx, 4, 4).permute(2, 3, 0, 1)
+    return (eo_d.contiguous(), eo_n.contiguous(),
+            out[..., 32:64].contiguous(), out[..., 64:96].contiguous())
+
+
+def sao_stats_dev(orig: torch.Tensor, rec: torch.Tensor,
+                  validx: torch.Tensor, validy: torch.Tensor, cs: int,
+                  bit_depth: int):
+    """Per-CTU SAO statistics.  orig/rec [H,W] int32; validx [W] / validy
+    [H] bool (False at tile-boundary columns/rows).  → (eo_d [4,4,ny,nx],
+    eo_n, bo_d [ny,nx,32], bo_n) float32 on the planes' device.  CUDA
+    tensor → csrc/sao_stats.cu `sao_stats`; CPU tensor or `ops.plain()` →
+    the twin."""
+    if ops.use_kernel(orig):
+        return _sao_stats_cuda(orig, rec, validx, validy, cs, bit_depth)
+    return sao_stats_plain(orig, rec, validx, validy, cs, bit_depth)

@@ -47,6 +47,8 @@ SOURCES = {
     "luma_ds": "cclm.cu",
     "cclm_models": "cclm.cu",
     "intra_pred_one": "intra_pred.cu",
+    "sao_stats": "sao_stats.cu",
+    "alf_stats": "alf_stats.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -140,7 +142,9 @@ def build(verbose: bool = False) -> float:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """Load (building first if needed) the shared library of kernel `name`."""
+    """Load (building first if needed) the shared library of kernel `name`.
+    Safe from several threads: the build and the load run under `_lock`
+    (the lossy frame pool launches the filter statistics from 4 threads)."""
     src = SOURCES[name]
     if src not in _libs:
         build()
@@ -151,11 +155,13 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def launched(name: str, err: int) -> None:
-    """Post-launch bookkeeping: raise on a launch error, else count it."""
+    """Post-launch bookkeeping: raise on a launch error, else count it
+    (under `_lock`: `+=` on a dict entry is not atomic across threads)."""
     if err != 0:
         raise RuntimeError(f"vvc_torch: kernel {name} launch failed "
                            f"(cudaError {err})")
-    COUNTS[name] += 1
+    with _lock:
+        COUNTS[name] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

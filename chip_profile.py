@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--trace profile_trace.json] [--lossy [3|2b|2a]]
+    python3 chip_profile.py [--trace profile_trace.json]
+                            [--lossy [3|2b|2a] | --inter]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -29,6 +30,12 @@ pooled.  --lossy 2b and 2a are lossy All-Intra through
 `Encoder.encode_frame`, one frame after the other, twice: profiled (the
 device's busy time and idle share as above) and unprofiled; 2b has MTS,
 MIP, LFNST, CCLM and deblocking on, 2a leaves LFNST and CCLM off.
+
+--inter is the slice-4a main path of `chip_smoke.py` [12]: Random Access
+`encode_sequence(mode="ra", gop_size=8)` of nine 1080p frames of the
+motion clip (vvc_torch.io.synth.motion_clip) with the default tool set,
+twice: profiled (the device's busy time and idle share as above) and
+unprofiled.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -71,6 +78,8 @@ def main() -> int:
                     help="profile a lossy All-Intra path: 3, encode_sequence "
                          "with the default tools (default); 2b or 2a, "
                          "encode_frame with slice 2b's or 2a's tools")
+    ap.add_argument("--inter", action="store_true",
+                    help="profile the Random Access path (9 frames, GOP 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -79,7 +88,7 @@ def main() -> int:
     from vvc_torch import ops, packer
     from vvc_torch.enc.encoder import Encoder, encode_sequence
     from vvc_torch.hls.ps import PPS, SPS
-    from vvc_torch.io.synth import synth_frame
+    from vvc_torch.io.synth import motion_clip, synth_frame
     from vvc_torch.utils import perf
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,6 +99,10 @@ def main() -> int:
     ops.build()
     packer.lib()
     frames = [synth_frame(W, H, t) for t in range(2)]
+    if args.inter:
+        encode_sequence(motion_clip(5, 416, 240), qp=32, mode="ra",
+                        gop_size=4)
+        frames = motion_clip(9, W, H)
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
     if args.lossy == "2b":
         lossy.update(lfnst=True, cclm=True)
@@ -99,9 +112,12 @@ def main() -> int:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
         enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
-    else:
+    elif not args.inter:
         encode_sequence([synth_frame(416, 240, 0)], qp=32,
                         lossless=lossless)
+    lossless = lossless and not args.inter
+    path = ("inter RA GOP8" if args.inter else
+            f"lossy {args.lossy}" if args.lossy else "lossless")
 
     def run(name, calls):
         perf.reset()
@@ -111,12 +127,14 @@ def main() -> int:
             if per_frame:
                 for poc, f in enumerate(fs):
                     enc.encode_frame(f, poc)
+            elif args.inter:
+                encode_sequence(fs, qp=32, mode="ra", gop_size=8)
             else:
                 encode_sequence(fs, qp=32, lossless=lossless)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return {"run": name,
-                "path": f"lossy {args.lossy}" if args.lossy else "lossless",
+                "path": path,
                 "frames": len(frames),
                 "size": f"{W}x{H}", "wall_s": wall,
                 "frames_per_s": len(frames) / wall,
@@ -125,8 +143,8 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        rec = run("serial-profiled" if per_frame else "pooled-profiled",
-                  [frames])
+        rec = run("serial-profiled" if per_frame or args.inter
+                  else "pooled-profiled", [frames])
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
     busy, n_dev = busy_seconds(args.trace)
@@ -139,7 +157,7 @@ def main() -> int:
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     print(top, flush=True)
-    if per_frame:
+    if per_frame or args.inter:
         print(json.dumps(run("serial", [frames])), flush=True)
         return 0
     print(json.dumps(run("serial", [[f] for f in frames])), flush=True)

@@ -5,20 +5,24 @@
 
 Builds the port's CUDA kernels from vvc_torch/csrc with nvcc (sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's four main paths at 1920×1080, QP 32 — lossless All-Intra through
+port's five main paths at 1920×1080, QP 32 — lossless All-Intra through
 `vvc_torch.enc.encoder.encode_sequence` (slice 1, one frame), lossy
 All-Intra with MTS, MIP and deblocking through `Encoder.encode_frame`
 (slice 2a, two frames), the same with LFNST and CCLM on (slice 2b, two
-frames), and lossy `encode_sequence` with its default tool set, SAO, ALF
-and CC-ALF included (slice 3, two frames) — and checks what comes out:
+frames), lossy `encode_sequence` with its default tool set, SAO, ALF
+and CC-ALF included (slice 3, two frames), and Random Access
+`encode_sequence(mode="ra", gop_size=8)` with the same defaults on a
+clip in global sub-pel motion (slice 4a, nine frames: I, P and seven B
+pictures) — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the fourteen kernels against its plain version on the card
-     (exact equality; the quant_rate kernel's float rates and the filter
-     statistics bit for bit), at the main paths' shapes, with CUDA-event
-     times per 1080p frame (the SAO and ALF statistics on the recon of a
-     2b picture, after [7]);
+  3. each of the eighteen kernels against its plain version on the card
+     (exact equality; the quant_rate kernel's float rates, the filter
+     statistics and the motion search's costs bit for bit), at the main
+     paths' shapes, with CUDA-event times per 1080p frame (the SAO and
+     ALF statistics on the recon of a 2b picture, after [7]; the four
+     motion-search kernels per 1080p B picture with 2 refs per list);
   4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
      kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
@@ -36,7 +40,14 @@ and CC-ALF included (slice 3, two frames) — and checks what comes out:
      SEI), the SAO types and ALF filters used, and the stream byte-equal
      to the plain path's;
   11. bench_ai's configuration (8 × 416×240, QP 32, the defaults), single
-     tile and 2 tile columns: kernel streams == plain streams, frames/s.
+     tile and 2 tile columns: kernel streams == plain streams, frames/s;
+  12. the slice-4a main path (9 frames 1080p RA, GOP 8): each of the
+     eighteen kernels launched (these counts fill the kernel table), the
+     stream starts with SPS and PPS, the NAL and slice type of every
+     picture, PSNR and bytes in range, the share of inter leaves and the
+     histogram of their inter_dir, frames/s and the host phases;
+  13. at 416×240 on the motion clip, the kernel path's streams byte-equal
+     to the plain path's for LDP (4 frames), LDB (4) and RA GOP 8 (9).
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -79,6 +90,7 @@ LOSSY_2B_LAUNCHES = dict(LOSSY_LAUNCHES, ref_lines=12, transform_fwd=20,
 LOSSLESS_KERNELS = ("ref_lines", "intra_pred_all", "satd")
 # slice 3 adds the filter statistics: SAO per component, ALF once
 SLICE3_LAUNCHES = dict(LOSSY_2B_LAUNCHES, sao_stats=3, alf_stats=1)
+ME_KERNELS = ("me_prep", "me_coarse", "me_int", "me_qpel")
 
 
 def check(cond, msg: str) -> None:
@@ -152,14 +164,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vvc_torch import ops
     from vvc_torch import packer
-    from vvc_torch.enc import rdo
+    from vvc_torch.enc import me, rdo
     from vvc_torch.enc.encoder import Encoder, encode_sequence
     from vvc_torch.hls.ps import PPS, SPS
     from vvc_torch.io.nal import read_annexb
-    from vvc_torch.io.synth import synth_frame
+    from vvc_torch.io.synth import motion_clip, synth_frame
     from vvc_torch.enc import sao_enc
     from vvc_torch.kernels import (alf, cclm, intra, lfnst, mip, quant, sao,
                                    satd, transform)
+    from vvc_torch.kernels.mc import LUMA_FILTERS
     from vvc_torch.packer import native_recon
     from vvc_torch.utils import perf
 
@@ -553,6 +566,161 @@ def main() -> int:
                              n * ((4 * cs + 3) * 4 + 4 + cs * cs * 4),
                              16 * n * cs * cs)
         del luma, ds, planes
+    # the motion search's kernels (slice 4a), per 1080p B picture with 2
+    # refs per list (R = 4) as the RA main path runs them: me_prep for the
+    # current picture and the one new reference, me_coarse once, me_int
+    # and me_qpel per ref at 64, 32 and 16 and for the 8x8 children.
+    # Exactness on the motion clip (8 bit) and on noise (10 bit, every SSE
+    # above 2^24); times on the motion clip.
+    me_clip = [f.y for f in motion_clip(5, W_HD, H_HD)]
+    for bd in (8, 10):
+        if bd == 8:
+            planes = [torch.from_numpy(y).to(dev) for y in me_clip]
+        else:
+            planes = [torch.from_numpy(rng.integers(0, 1024, (H_HD, W_HD))
+                                       .astype(np.int32)).to(dev)
+                      for _ in range(5)]
+        time_it = bd == 8
+        cur, refs = planes[2], [planes[i] for i in (1, 0, 3, 4)]
+        got = me.prep_ref(cur)
+        with ops.plain():
+            want = me.prep_ref(cur)
+        compare("me_prep", got[0], want[0])
+        compare("me_prep", got[1], want[1])
+        yds = got[1]
+        preps = [me.prep_ref(r) for r in refs]
+        refpad = torch.stack([p[0] for p in preps])
+        refds = torch.stack([p[1] for p in preps])
+        if time_it:
+            f = lambda: me.prep_ref(cur)
+            k_ms = cuda_ms(f)
+            with ops.plain():
+                p_ms = cuda_ms(f)
+            h4, w4 = (H_HD + 3) // 4, (W_HD + 3) // 4
+            nb = (H_HD * W_HD + (H_HD + 32) * (W_HD + 32) + h4 * w4) * 4
+            add_time("me_prep", 2 * k_ms, 2 * p_ms, 2 * nb,
+                     2 * ((H_HD + 32) * (W_HD + 32) + 17 * h4 * w4))
+        grids = me.coarse_search(yds, refds)
+        with ops.plain():
+            want = me.coarse_search(yds, refds)
+        for s in (16, 32, 64):
+            compare("me_coarse", grids[s], want[s])
+        if time_it:
+            f = lambda: me.coarse_search(yds, refds)
+            k_ms = cuda_ms(f)
+            with ops.plain():
+                p_ms = cuda_ms(f, iters=2, warmup=1)
+            n4y, n4x = me._coarse_dims(h4, w4)
+            add_time("me_coarse", k_ms, p_ms,
+                     5 * h4 * w4 * 4 + 289 * 4
+                     + 4 * n4y * n4x * 8 * (1 + 1 / 4 + 1 / 16),
+                     4 * 289 * (3 * h4 * w4 + 4 * n4y * n4x))
+        _, lam_m = rdo.lambda_f32(32)
+        for s in (64, 32, 16, 8):
+            ps = 16 if s == 8 else s
+            if ps == 16:
+                ny8, nx8 = H_HD // 8, W_HD // 8
+                nye, nxe = (ny8 + 1) // 2, (nx8 + 1) // 2
+            else:
+                nye, nxe = H_HD // ps, W_HD // ps
+            ry = torch.arange(nye * ps, device=dev).clamp(max=H_HD - 1)
+            rx = torch.arange(nxe * ps, device=dev).clamp(max=W_HD - 1)
+            yp = cur[ry][:, rx]
+            xs_, ys_ = grid_xy(ps, nxe * ps, nye * ps, dev)
+            g = grids[ps]
+            giy = (ys_ // ps).long().clamp(max=g.shape[1] - 1)
+            gix = (xs_ // ps).long().clamp(max=g.shape[2] - 1)
+            if s == 8:
+                ob = (yp.reshape(nye, 2, 8, nxe, 2, 8)
+                      .permute(0, 3, 1, 4, 2, 5).reshape(-1, 8, 8)
+                      .contiguous())
+                xs_ = (xs_[:, None] + torch.tensor([0, 8, 0, 8], device=dev,
+                                                   dtype=torch.int32)
+                       ).reshape(-1)
+                ys_ = (ys_[:, None] + torch.tensor([0, 0, 8, 8], device=dev,
+                                                   dtype=torch.int32)
+                       ).reshape(-1)
+            else:
+                ob = (yp.reshape(nye, ps, nxe, ps).permute(0, 2, 1, 3)
+                      .reshape(-1, ps, ps).contiguous())
+            nblk = ob.shape[0]
+            for r in range(4):
+                cy = g[r, giy, gix, 0]
+                cx = g[r, giy, gix, 1]
+                if s == 8:      # the parents' clipped centres
+                    _, _, cy, cx = me.int_refine(refpad[r], parent_ob,
+                                                 parent_ys, parent_xs, cy, cx,
+                                                 lam_m, 16, H_HD, W_HD)
+                    cy, cx = cy.repeat_interleave(4), cx.repeat_interleave(4)
+                args = (refpad[r], ob, ys_, xs_, cy, cx, lam_m, s, H_HD,
+                        W_HD)
+                ik = me.int_refine(*args)
+                with ops.plain():
+                    ip = me.int_refine(*args)
+                for a, b in zip(ik, ip):
+                    compare("me_int", a, b)
+                qargs = (refpad[r], ob, ys_, xs_, ik[0], ik[1], lam_m, s, bd)
+                qk = me.qpel_refine(*qargs)
+                with ops.plain():
+                    qp_ = me.qpel_refine(*qargs)
+                compare("me_qpel", qk[0], qp_[0])
+                compare("me_qpel", qk[1], qp_[1])
+                compare("me_qpel", qk[2].view(torch.int32),
+                        qp_[2].view(torch.int32))
+                compare("me_qpel", qk[3], qp_[3])
+                del ip, qp_
+                if not time_it:
+                    continue
+                f = lambda: me.int_refine(*args)
+                k_ms = cuda_ms(f)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=1, warmup=0)
+                add_time("me_int", k_ms, p_ms,
+                         nblk * (s * s + 4 * 4) * 4
+                         + (H_HD + 32) * (W_HD + 32) * 4 + 4096 * 4,
+                         nblk * 81 * (3 * s * s + 4))
+                f = lambda: me.qpel_refine(*qargs)
+                k_ms = cuda_ms(f)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=1, warmup=0)
+                m2 = s + 12
+                add_time("me_qpel", k_ms, p_ms,
+                         nblk * (2 * s * s + 4 * 4 + 4 * 3) * 4
+                         + (H_HD + 32) * (W_HD + 32) * 4 + 4096 * 4,
+                         nblk * (7 * m2 * s * 16 + 49 * s * s * 25))
+                # yardstick: the DCTIF pass of all 49 offsets as one
+                # float64 conv2d of the 16 phase kernels over the windows;
+                # it reproduces the kernel's prediction of the winner
+                oy = ys_ + 16 + ik[0] - 6
+                ox = xs_ + 16 + ik[1] - 6
+                kk = torch.arange(m2, device=dev)
+                w2 = refpad[r][(oy[:, None] + kk)[:, :, None],
+                               (ox[:, None] + kk)[:, None, :]]
+                w2 = w2.to(torch.float64)[:, None]
+                lf = torch.from_numpy(np.asarray(LUMA_FILTERS, np.float64)
+                                      ).to(dev)
+                kern = (lf[:, None, :, None] * lf[None, :, None, :]
+                        ).reshape(16, 1, 8, 8)
+                lib = lambda: torch.nn.functional.conv2d(w2, kern)
+                acc = lib()
+                qy, qx = qk[0] - 4 * ik[0], qk[1] - 4 * ik[1]
+                r0, c0 = (qy >> 2) + 3, (qx >> 2) + 3
+                ph = (qy & 3) * 4 + (qx & 3)
+                sel = acc[torch.arange(nblk, device=dev)[:, None, None],
+                          ph[:, None, None],
+                          (r0[:, None] + torch.arange(s, device=dev))[:, :,
+                                                                       None],
+                          (c0[:, None] + torch.arange(s, device=dev))[:, None,
+                                                                       :]]
+                libp = torch.floor((sel + 2048.0) / 4096.0).clamp(0, 255)
+                compare("me_qpel", libp.to(torch.int32), qk[3])
+                stats["me_qpel"]["library_ms"] = (
+                    stats["me_qpel"]["library_ms"] or 0.0) + cuda_ms(
+                        lib, iters=3, warmup=1)
+                del w2, acc, sel, libp
+            if ps == 16 and s == 16:
+                parent_ob, parent_ys, parent_xs = ob, ys_, xs_
+        del planes, refpad, refds, preps
     torch.cuda.synchronize()
     for name, st in stats.items():
         if name in ("sao_stats", "alf_stats"):
@@ -876,7 +1044,76 @@ def main() -> int:
               f"on {kind}: {len(a)} bytes, {el:.2f} s, "
               f"{len(bench) / el:.4f} frames/s; kernel stream == plain "
               f"stream", flush=True)
-    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s",
+
+    # 12. the slice-4a main path: Random Access, GOP 8, 9 frames of the
+    # motion clip at 1080p, vvc's defaults; its counts fill the kernel
+    # table
+    clip9 = motion_clip(9, W_HD, H_HD)
+    perf.reset()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    bs12, recons12, stats12 = encode_sequence(clip9, qp=32, mode="ra",
+                                              gop_size=8)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ops.COUNTS)
+    phases = perf.report()
+    for name in ops.COUNTS:
+        check(launches[name] > 0,
+              f"{name}: no launch on the slice-4a main path")
+    nals12 = read_annexb(bs12)
+    types = [n.nal_type for n in nals12]
+    slice_nals = [n for n in nals12 if n.nal_type in (0, 8)]
+    check(types[:2] == [15, 16] and len(slice_nals) == len(clip9)
+          and types[2:].count(24) == len(clip9)
+          and set(types[2:]) <= {0, 8, 17, 24},
+          f"slice-4a stream NAL types {types}")
+    order_types = [(s12["poc"], s12["slice_type"]) for s12 in stats12]
+    check([st for _, st in order_types] == [2, 0, 0, 0, 0, 0, 0, 0, 1],
+          f"slice types by POC {order_types}")
+    check([n.nal_type for n in slice_nals].count(8) == 1,
+          "one IDR picture expected")
+    dirs = np.sum([s12["leaf_dirs"] for s12 in stats12[1:]], axis=0)
+    for f, r, s12 in zip(clip9, recons12, stats12):
+        for a, b in ((f.y, r.y), (f.cb, r.cb), (f.cr, r.cr)):
+            check(a.shape == b.shape and int(b.min()) >= 0
+                  and int(b.max()) <= 255, "slice-4a recon out of range")
+        for k in ("psnr_y", "psnr_cb", "psnr_cr"):
+            check(30.0 < s12[k] < 70.0, f"slice 4a POC {s12['poc']} {k} "
+                  f"{s12[k]}")
+    check(20000 < len(bs12) < 9 * 250000,
+          f"slice-4a stream {len(bs12)} bytes")
+    check(dirs[1:].sum() > 0 and dirs[3] > 0,
+          f"inter leaves by dir {dirs.tolist()}")
+    print(f"[12] slice-4a main path: 9 frames 1920x1080 RA GOP8 QP32 "
+          f"(encode_sequence defaults, motion clip) on {kind}: "
+          f"{len(bs12)} bytes, {elapsed:.2f} s, "
+          f"{len(clip9) / elapsed:.4f} frames/s; (POC, slice type) "
+          f"{order_types}; NAL types {types}; PSNR-Y/Cb/Cr by POC "
+          f"{[round(float(s12['psnr_y']), 4) for s12 in stats12]} / "
+          f"{[round(float(s12['psnr_cb']), 4) for s12 in stats12]} / "
+          f"{[round(float(s12['psnr_cr']), 4) for s12 in stats12]} dB; "
+          f"bytes by POC {[s12['bits'] // 8 for s12 in stats12]}; "
+          f"leaves of the P/B pictures (intra, L0, L1, bi) {dirs.tolist()} "
+          f"({100.0 * dirs[1:].sum() / dirs.sum():.2f} % inter); launches "
+          f"{launches}; phases (thread-seconds) {json.dumps(phases)}",
+          flush=True)
+
+    # 13. kernel path byte-equal to the plain path at 416x240, inter GOPs
+    clip_s = motion_clip(9, 416, 240)
+    for mode, n, kw in (("ldp", 4, {}), ("ldb", 4, {}),
+                        ("ra", 9, {"gop_size": 8})):
+        t0 = time.perf_counter()
+        a = encode_sequence(clip_s[:n], qp=32, mode=mode, **kw)[0]
+        el = time.perf_counter() - t0
+        with ops.plain():
+            b = encode_sequence(clip_s[:n], qp=32, mode=mode, **kw)[0]
+        check(a == b, f"416x240 {mode} {n} frames: kernel stream != plain "
+              f"stream")
+        print(f"[13] 416x240 {mode.upper()} {n} frames {kw}: {len(a)} bytes, "
+              f"{el:.2f} s; kernel stream == plain stream", flush=True)
+    print(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -893,7 +1130,11 @@ def main() -> int:
            "cclm_models": "vvc/kernels/cclm.py:187",
            "intra_pred_one": "vvc/kernels/intra.py:878",
            "sao_stats": "vvc/kernels/sao.py:157",
-           "alf_stats": "vvc/kernels/alf.py:330"}
+           "alf_stats": "vvc/kernels/alf.py:330",
+           "me_prep": "vvc/enc/me.py:73",
+           "me_coarse": "vvc/enc/me.py:108",
+           "me_int": "vvc/enc/me.py:150,156,167",
+           "me_qpel": "vvc/enc/me.py:203"}
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k], "launches": launches[k],

@@ -48,3 +48,6 @@ def _jax_cache_teardown():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")
+    config.addinivalue_line(
+        "markers", "slow: minutes of reference compiles; tier-1 runs "
+        "-m 'not slow'")

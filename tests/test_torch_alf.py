@@ -1,12 +1,15 @@
 """The port's ALF and CC-ALF (vvc_torch.kernels.alf, vvc_torch.enc.alf_enc,
 vvc_torch.kernels.ccalf, vvc_torch.hls.aps) against vvc's on the CPU.
 
-alf_stats_dev: the port sums exactly and rounds once; vvc's float32 dots
-(Eigen contractions on XLA-CPU, whose order the port does not reproduce)
-round along the way.  So npx is held exact, the port's A100, B100 and
-sse0 equal the exactly rounded sums bit for bit, and they are held to
-vvc's within a relative 2^-20 of their scale (A: √(A_ii·A_jj), the
-Cauchy–Schwarz bound of |A_ij|; B and sse0: the group's largest entry).
+alf_stats_dev: the port sums exactly and rounds once, except B100 from
+4096 grid points on, which takes the float32 order of the tiled GEMV
+XLA-CPU lowers vvc's Fᵀt dot to, and is held bit-equal to vvc's.  vvc's
+other float32 sums (A100, an Eigen contraction whose order the port does
+not reproduce, and sse0) round along the way.  So npx and B100 are held
+bit-equal, the port's A100 and sse0 equal the exactly rounded sums bit
+for bit, and they are held to vvc's within a relative 2^-20 of their
+scale (A: √(A_ii·A_jj), the Cauchy–Schwarz bound of |A_ij|; sse0: its
+largest entry).
 Every decision that rests on them — the luma filters, clips, class map
 and CTU flags, the chroma filter — is held equal to vvc's (ROADMAP §3;
 tests/sweep_torch_alf_decisions.py sweeps more pictures).  The host
@@ -80,19 +83,41 @@ def test_alf_stats_exact_and_near_vvc(w, h, bit_depth, amp):
     assert all(g.dtype == torch.float32 for g in got)
     got = [g.numpy() for g in got]
     exact = _exact_stats(o, r, cls4, tr4)
-    for g, e in zip(got, exact):
-        np.testing.assert_array_equal(g, e.astype(np.float32))
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i], exact[i].astype(np.float32))
     np.testing.assert_array_equal(got[3], want[3])             # npx
+    # B100 (Fᵀt) bit for bit: vvc's GEMV order
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  want[1].astype(np.float32).view(np.int32))
     A = got[0].astype(np.float64)
     diag = np.sqrt(np.einsum("gii->gi", np.abs(want[0])))
     assert (np.abs(A - want[0])
             <= TOL * diag[:, :, None] * diag[:, None, :]).all()
-    for g, wv in zip(got[1:3], want[1:3]):
-        scale = np.abs(wv).max(axis=-1, keepdims=True)
-        assert (np.abs(g - wv) <= TOL * scale).all()
+    scale = np.abs(want[2]).max(axis=-1, keepdims=True)
+    assert (np.abs(got[2] - want[2]) <= TOL * scale).all()
     if (w, bit_depth) != (416, 8):
         # the sums pass 2^24 and vvc's float32 order shows
         assert (A != want[0]).any()
+
+
+@pytest.mark.parametrize("amp", (40, 160))
+def test_alf_b100_bit_equal_1080p_10bit(amp):
+    """B100 at 1080p, 10 bit, on the picture family of
+    tests/sweep_torch_alf_decisions.py: bit-equal to vvc's, where the
+    exactly rounded sums differ from vvc's in some entries (the order
+    matters there)."""
+    import torch
+    from vvc_torch.kernels import alf as port
+    orig, rec = picture(1920, 1080, 10, amp, 0, t=3)
+    o, r = orig[0], rec[0]
+    cls4, tr4 = ref.alf_classify_np(r, 10)
+    want = np.asarray(ref.alf_stats_dev(
+        *(jnp.asarray(a) for a in (o, r, cls4, tr4)))[1], np.float32)
+    got = port.alf_stats_dev(*(torch.from_numpy(a)
+                               for a in (o, r, cls4, tr4)))[1].numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    exact = _exact_stats(o, r, cls4, tr4)[1].astype(np.float32)
+    assert (exact != want).any()
 
 
 def _alf_fields(res):

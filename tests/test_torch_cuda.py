@@ -85,9 +85,9 @@ def test_wrapper_rejects_int64(dev):
 @pytest.mark.parametrize("bit_depth", (8, 10))
 @pytest.mark.parametrize("size", (8, 16, 32, 64))
 def test_lossy_kernels_equal_plain(dev, size, bit_depth):
-    """transform_fwd → quant_rate → transform_inv for every MTS pair of the
-    size, and MIP at 8..32: kernels against their plain versions; the
-    rates bit for bit."""
+    """transform_fwd → quant_rate (intra and inter dead zone) →
+    transform_inv for every MTS pair of the size, and MIP at 8..32:
+    kernels against their plain versions; the rates bit for bit."""
     import torch
     from vvc_torch import ops
     from vvc_torch.kernels import mip, quant, transform
@@ -103,10 +103,12 @@ def test_lossy_kernels_equal_plain(dev, size, bit_depth):
                             th, tv)
         assert torch.equal(coeff, want)
         for qp in (0, 22, 37, 51, 63):
-            got, want = _both(quant.quant_rate, coeff, qp, bit_depth)
-            assert torch.equal(got[0].view(torch.int32),
-                               want[0].view(torch.int32))
-            assert torch.equal(got[1], want[1])
+            for intra in (False, True):      # the inter and intra dead zone
+                got, want = _both(quant.quant_rate, coeff, qp, bit_depth,
+                                  False, intra)
+                assert torch.equal(got[0].view(torch.int32),
+                                   want[0].view(torch.int32))
+                assert torch.equal(got[1], want[1])
         rec, want = _both(transform.inv_transform_batch, got[1], bit_depth,
                           th, tv)
         assert torch.equal(rec, want)
@@ -115,7 +117,7 @@ def test_lossy_kernels_equal_plain(dev, size, bit_depth):
                                 .astype(np.int32)).to(dev)
         got, want = _both(mip.mip_predict_all_batch, refs, size, bit_depth)
         assert torch.equal(got, want)
-    assert ops.COUNTS["quant_rate"] == before["quant_rate"] + 5 * len(pairs)
+    assert ops.COUNTS["quant_rate"] == before["quant_rate"] + 10 * len(pairs)
     assert ops.COUNTS["transform_fwd"] == before["transform_fwd"] + len(pairs)
 
 
@@ -238,9 +240,11 @@ def test_2b_search_vector_equal_plain(dev, cols):
     got, want = _both(rdo.eval_all_sizes_frames, vec, shapes, 32, 8, w, h,
                       cols, False, True, True)
     assert torch.equal(got, want)
-    # every kernel of the search (the filter statistics run after it)
+    # every kernel of the intra search (the filter statistics run after
+    # it; the motion search's kernels belong to the inter search)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
-               if k not in ("sao_stats", "alf_stats"))
+               if k not in ("sao_stats", "alf_stats", "me_prep",
+                            "me_coarse", "me_int", "me_qpel"))
 
 
 @pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
@@ -270,10 +274,11 @@ def test_sao_stats_equal_plain(dev, bit_depth, cs, h, w):
 
 
 @pytest.mark.parametrize("bit_depth,h,w", [(8, 240, 416), (10, 136, 200),
-                                          (8, 1080, 1920)])
+                                          (8, 1080, 1920), (10, 64, 128)])
 def test_alf_stats_equal_plain(dev, bit_depth, h, w):
-    """ALF statistics, bit-equal to the plain twin (both exact sums rounded
-    once to float32)."""
+    """ALF statistics, bit-equal to the plain twin (exact sums rounded once
+    to float32; B100 in vvc's GEMV order from 4096 grid points on, which
+    64×128 stays below)."""
     import torch
     from vvc_torch import ops
     from vvc_torch.kernels import alf
@@ -289,3 +294,107 @@ def test_alf_stats_equal_plain(dev, bit_depth, h, w):
         assert g.dtype == torch.float32 and torch.equal(g, wv)
     assert ops.COUNTS["alf_stats"] == before + 1
     assert float(got[3].sum()) == ((h + 1) // 2) * ((w + 1) // 2)
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (45, 67), (240, 416)])
+def test_me_prep_coarse_equal_plain(dev, h, w):
+    """me_prep (padded + ds4 planes) and me_coarse (grids for 16, 32, 64,
+    two refs) against their plain twins, on noise, on a flat picture
+    (where the MV bias decides) and on a picture whose ds4 columns
+    ≡ 0, 3, 5, 6 (mod 8) are raised, where dx = -1 and +1 tie in the 4×4
+    cells starting at ds4 column ≡ 0 (mod 8): the two sit in different
+    displacement groups of the kernel, so the tie crosses its final
+    merge."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import me
+    rng = np.random.default_rng(h + w)
+    for kind in ("noise", "flat", "tie"):
+        if kind == "tie":
+            base = np.full((h, w), 300)
+            base[:, np.isin(np.arange(w) % 32, (0, 1, 2, 3, 12, 13, 14, 15,
+                                               20, 21, 22, 23, 24, 25, 26,
+                                               27))] += 40
+            pics = [np.full((h, w), 300), base, base]
+        else:
+            pics = [np.full((h, w), 300) if kind == "flat"
+                    else rng.integers(0, 1024, (h, w)) for _ in range(3)]
+        planes = [torch.from_numpy(p.astype(np.int32)).to(dev)
+                  for p in pics]
+        before = ops.COUNTS["me_prep"]
+        preps = [_both(me.prep_ref, p) for p in planes]
+        assert ops.COUNTS["me_prep"] == before + 3
+        for got, want in preps:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        yds = preps[0][0][1]
+        refds = torch.stack([p[0][1] for p in preps[1:]])
+        got, want = _both(me.coarse_search, yds, refds)
+        for s in (16, 32, 64):
+            assert torch.equal(got[s], want[s])
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+@pytest.mark.parametrize("size", (8, 16, 32, 64))
+def test_me_int_qpel_equal_plain(dev, size, bit_depth):
+    """me_int and me_qpel against their twins at every size: a shifted
+    textured picture, a flat one (constructed ties) and, at 10 bit,
+    noise (SSE sums above 2^24); costs bit for bit."""
+    import torch
+    from vvc_torch.enc import me
+    from vvc_torch.enc.rdo import lambda_f32
+    rng = np.random.default_rng(size * bit_depth)
+    h, w = 128, 192
+    mx = (1 << bit_depth) - 1
+    yy, xx = np.mgrid[0:h + 8, 0:w + 8]
+    tex = np.clip(mx * (0.5 + 0.3 * np.sin(xx / 5.0) * np.cos(yy / 7.0))
+                  + rng.integers(-3, 4, xx.shape), 0, mx)
+    cases = [(tex[2:2 + h, 5:5 + w], tex[6:6 + h, 1:1 + w]),
+             (np.full((h, w), mx // 2), np.full((h, w), mx // 2))]
+    if bit_depth == 10:
+        cases.append((rng.integers(0, mx + 1, (h, w)),
+                      rng.integers(0, mx + 1, (h, w))))
+    _, lam_m = lambda_f32(32)
+    for ref, cur in cases:
+        rp = me.prep_ref(torch.from_numpy(ref.astype(np.int32)).to(dev))[0]
+        ny, nx = h // size, w // size
+        cur_t = torch.from_numpy(cur.astype(np.int32)).to(dev)
+        ob = (cur_t.reshape(ny, size, nx, size).permute(0, 2, 1, 3)
+              .reshape(-1, size, size).contiguous())
+        ys = (torch.arange(ny, dtype=torch.int32, device=dev) * size
+              ).repeat_interleave(nx)
+        xs = (torch.arange(nx, dtype=torch.int32, device=dev) * size
+              ).repeat(ny)
+        cy = torch.from_numpy(rng.integers(-36, 37, ny * nx).astype(
+            np.int32)).to(dev)
+        cx = torch.from_numpy(rng.integers(-36, 37, ny * nx).astype(
+            np.int32)).to(dev)
+        cy[::3] = 0
+        cx[::3] = 0
+        got, want = _both(me.int_refine, rp, ob, ys, xs, cy, cx, lam_m,
+                          size, h, w)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        got, want = _both(me.qpel_refine, rp, ob, ys, xs, got[0], got[1],
+                          lam_m, size, bit_depth)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+        assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("mode,n", [("ldp", 3), ("ldb", 3), ("ra", 5)])
+def test_inter_stream_equal_plain(dev, mode, n):
+    """Small LDP / LDB / RA encodes on the motion clip: the kernel path's
+    stream equals the plain path's, and every ME kernel launched."""
+    from vvc_torch import ops
+    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.io.synth import motion_clip
+    clip = motion_clip(n, 128, 64)
+    before = dict(ops.COUNTS)
+    kw = {"gop_size": 4} if mode == "ra" else {}
+    a = encode_sequence(clip, qp=32, mode=mode, **kw)[0]
+    assert all(ops.COUNTS[k] > before[k]
+               for k in ("me_prep", "me_coarse", "me_int", "me_qpel"))
+    with ops.plain():
+        b = encode_sequence(clip, qp=32, mode=mode, **kw)[0]
+    assert a == b

@@ -53,8 +53,8 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
 
 @pytest.mark.parametrize("kw,match", [({"lossless": False, "mtt": True},
                                        "slice 2c"),
-                                      ({"lossless": True, "mode": "ra"},
-                                       "inter slice"),
+                                      ({"lossless": False, "mode": "ra",
+                                        "mctf": True}, "slice 4b"),
                                       ({"lossless": True, "target_kbps": 500},
                                        "rate-control item"),
                                       ({"lossless": True, "wpp": True},

@@ -1,9 +1,11 @@
 """vvc_torch stands alone: after importing it and running tiny CPU
 encodes — lossless encode_sequence, a lossy Encoder.encode_frame with
-MTS, MIP and deblocking, one with LFNST and CCLM too, and a lossy
-encode_sequence with the default tool set (SAO, ALF and CC-ALF on) — no
-JAX module and no module of the JAX package `vvc` is loaded; and the entry points, given no device, ask for CUDA and
-raise where CUDA is absent instead of falling back to the CPU."""
+MTS, MIP and deblocking, one with LFNST and CCLM too, a lossy
+encode_sequence with the default tool set (SAO, ALF and CC-ALF on), and
+inter encode_sequence in LDP and RA — no JAX module and no module of the
+JAX package `vvc` is loaded; and the entry points, given no device, ask
+for CUDA and raise where CUDA is absent instead of falling back to the
+CPU."""
 import json
 import os
 import subprocess
@@ -34,10 +36,19 @@ lossy_ok = lossy_ok and bool(len(nals) == 2 and 20 < stats["psnr_y"] < 60)
 bs3, _, stats3 = encode_sequence(frames, qp=32, device="cpu")
 lossy_ok = lossy_ok and bool(len(bs3) > 0 and all(
     "alf" in s and "sao_types" in s for s in stats3))
+from vvc_torch.io.synth import motion_clip
+clip = motion_clip(5, 64, 64)
+bs4, _, stats4 = encode_sequence(clip[:3], qp=32, mode="ldp", device="cpu")
+bs5, _, stats5 = encode_sequence(clip, qp=32, mode="ra", gop_size=4,
+                                 device="cpu")
+inter_ok = bool(len(bs4) > 0 and len(bs5) > 0
+                and [s["slice_type"] for s in stats4] == [2, 1, 1]
+                and [s["slice_type"] for s in stats5] == [2, 0, 0, 0, 1])
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
                  lambda: encode_sequence(frames, qp=32),
+                 lambda: encode_sequence(clip[:2], qp=32, mode="ldp"),
                  lambda: Encoder(sps, PPS(init_qp=32))):
         try:
             call()
@@ -46,7 +57,8 @@ if not torch.cuda.is_available():
 print(json.dumps({
     "mods": sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
-    "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok, "raised": raised,
+    "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok,
+    "inter_ok": inter_ok, "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
 
@@ -60,12 +72,14 @@ def test_port_imports_no_jax_and_no_vvc():
     res = json.loads(out.strip().splitlines()[-1])
     assert res["mods"] == []
     assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
+    assert res["inter_ok"]
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
         "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
         "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one",
-        "sao_stats", "alf_stats")}
+        "sao_stats", "alf_stats", "me_prep", "me_coarse", "me_int",
+        "me_qpel")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 3
+        assert len(res["raised"]) == 4
         assert all("CUDA is not available" in r for r in res["raised"])

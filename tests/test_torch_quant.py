@@ -86,3 +86,35 @@ def test_quant_rate_matches_its_parts(size):
         assert rate.dtype == torch.float32
         np.testing.assert_allclose(rate.numpy(), bits.sum(axis=(1, 2)),
                                    rtol=size * size * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("size", (8, 16, 32, 64))
+def test_quant_rate_inter_dead_zone_equal(size):
+    """quant_rate(intra=False), the inter search's pass: the levels behind
+    its dequantised block are vvc's quant_batch(intra=False) (dead zone
+    85/512) at QPs 0..63, the rate is theirs within the float32 bound;
+    and the inter offset really changes levels (intra would differ)."""
+    import torch
+    from vvc_torch.kernels import quant as port
+    coeff = _coeffs(size, 5 * size)
+    qbatch = jax.jit(ref.quant_batch, static_argnames=("bit_depth",
+                                                       "intra"))
+    differs = False
+    for qp in range(0, 64, 3):
+        rate, deq = port.quant_rate(torch.from_numpy(coeff), qp, 8,
+                                    intra=False)
+        want_l = np.asarray(qbatch(jnp.asarray(coeff), jnp.int32(qp),
+                                   bit_depth=8, intra=False))
+        np.testing.assert_array_equal(
+            port.quant_batch(torch.from_numpy(coeff), qp, 8,
+                             intra=False).numpy(), want_l)
+        np.testing.assert_array_equal(
+            deq.numpy(), np.asarray(ref.dequant_batch(jnp.asarray(want_l),
+                                                      qp, 8)))
+        bits = np.asarray(jax.jit(ref_rates.level_bits_jnp)(
+            jnp.abs(jnp.asarray(want_l)))).astype(np.float64)
+        np.testing.assert_allclose(rate.numpy(), bits.sum(axis=(1, 2)),
+                                   rtol=size * size * 2.0 ** -24)
+        intra_deq = port.quant_rate(torch.from_numpy(coeff), qp, 8)[1]
+        differs |= not torch.equal(intra_deq, deq)
+    assert differs

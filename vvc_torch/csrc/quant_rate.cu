@@ -1,7 +1,8 @@
 // Quantise, price and dequantise square coefficient blocks in one pass.
 //
 // Replaces three TPU device functions that the RDO's rd_pass chains:
-// vvc/kernels/quant.py:87 quant_batch (intra dead zone 171/512),
+// vvc/kernels/quant.py:87 quant_batch (dead zone `offset`: 171/512 for the
+// intra search, 85/512 for the inter search),
 // vvc/cabac/rates.py:41 level_bits_jnp (+ jnp.sum over the block) and
 // vvc/kernels/quant.py:106 dequant_batch.  Per coefficient c, in int32:
 //   level = sign(c)·min((|c|·scale + offset) >> qbits, 32767)   (not stored)

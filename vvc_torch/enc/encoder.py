@@ -1,15 +1,20 @@
-"""All-Intra encoder: frames → Annex-B bitstream + reconstruction.
+"""Encoder: frames → Annex-B bitstream + reconstruction.
 
 Port of vvc/enc/encoder.py (`Encoder`, `encode_sequence`) with `device`
-threaded through to the RDO search and the SAO/ALF encoder statistics,
-the only device work.  It runs lossless All-Intra (slice 1) and lossy All-Intra with MTS, MIP and
-deblocking (slice 2a), LFNST and the device chroma decision, CCLM (slice
-2b), and SAO, ALF and CC-ALF (slice 3), whose encoder statistics run on
-the device (csrc/sao_stats.cu, csrc/alf_stats.cu) — the default lossy
-tool set of `encode_sequence`.  The options of later slices raise
-NotImplementedError naming their slice: MTT, ISP, MRL, LMCS, dependent
-quantization and WPP (2c), inter (4), rate control.  Everything after the
-search is the host code of vvc, copied.
+threaded through to the RDO searches and the SAO/ALF encoder statistics,
+the only device work.  It runs lossless All-Intra (slice 1) and lossy
+All-Intra with MTS, MIP and deblocking (slice 2a), LFNST and the device
+chroma decision, CCLM (slice 2b), and SAO, ALF and CC-ALF (slice 3),
+whose encoder statistics run on the device (csrc/sao_stats.cu,
+csrc/alf_stats.cu) — the default lossy tool set of `encode_sequence` —
+and, slice 4a, translational P and B pictures in the LDP, LDB and RA GOPs
+(`mode="ldp" | "ldb" | "ra"`): the inter search of
+vvc_torch.enc.inter_search (csrc/me.cu), the DPB, the collocated motion
+field, per-layer QP offsets and GOP-boundary checkpoints.  The options of
+later slices raise NotImplementedError naming their slice: MTT, ISP, MRL,
+LMCS, dependent quantization and WPP (2c), affine ME, MCTF and the
+host-only inter tools (4b), rate control.  Everything after the search is
+the host code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -31,6 +36,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import hashlib
+import os
+import pickle
 
 import numpy as np
 
@@ -44,12 +51,14 @@ from vvc_torch.packer import native as native_packer
 from vvc_torch.cabac.ctx import SliceContexts
 from vvc_torch.cabac.cu_syntax import TreeWriter
 from vvc_torch.model.frame import CodingState
+from vvc_torch.model.motion import motion_field_from_leaves
 from vvc_torch.model.recon import reconstruct_leaves
 from vvc_torch.kernels.alf import apply_alf_plane, apply_delta_gated
 from vvc_torch.kernels.ccalf import apply_ccalf_delta, derive_ccalf
 from vvc_torch.kernels.deblock import deblock_frame
 from vvc_torch.kernels.sao import SAO_BO, SAO_EO, SAO_OFF, sao_filter_plane
 from vvc_torch.enc.alf_enc import decide_alf_frame
+from vvc_torch.enc.inter_search import SLICE_4B, rdo_inter_partition
 from vvc_torch.enc.sao_enc import decide_sao_frame
 from vvc_torch.utils.trace import active as _trace
 from vvc_torch.enc.rdo import (rdo_partition, rdo_partition_dispatch,
@@ -78,6 +87,13 @@ def _check_sps(sps: SPS, pps: PPS) -> None:
                      (pps.wpp, "WPP row substreams")):
         if on:
             raise _not_in_slice(what, _SLICE_2C)
+    for on, what in ((sps.affine, "affine ME"), (sps.bdof, "BDOF"),
+                     (sps.dmvr, "DMVR"), (sps.mmvd, "MMVD"),
+                     (sps.ciip, "CIIP"), (sps.gpm, "GPM"),
+                     (sps.amvr, "AMVR"), (sps.smvd, "SMVD"),
+                     (sps.bcw, "BCW")):
+        if on:
+            raise _not_in_slice(what, SLICE_4B)
 
 
 def _hash_sei_payload(planes, bit_depth: int = 8) -> bytes:
@@ -90,6 +106,53 @@ def _hash_sei_payload(planes, bit_depth: int = 8) -> bytes:
     out += body
     out += b"\x80"  # rbsp trailing
     return bytes(out)
+
+
+def _decide_chroma_modes(leaves, frame, bit_depth: int):
+    """Per-leaf DM-vs-CCLM decision on *original* samples (the same
+    approximation the RDO search uses; reconstruction then executes the
+    chosen mode exactly).  Reference: IntraSearch::estIntraPredChromaQT.
+
+    DM costs come from one batched 67-mode prediction per (size, plane)
+    group (vvc_torch.kernels.intra); CCLM costs from the vectorized model."""
+    from vvc_torch.kernels.cclm import luma_ds_plane
+    from vvc_torch.kernels.intra import (predict_modes_np,
+                                         build_ref_lines_orig_np)
+
+    ds = luma_ds_plane(frame.y)
+    by_size = {}
+    for i, leaf in enumerate(leaves):
+        by_size.setdefault(leaf.size >> 1, []).append(i)
+    by_size = {k: np.asarray(v) for k, v in by_size.items()}
+    cost_dm = np.zeros(len(leaves))
+    cost_lm = {v: np.zeros(len(leaves)) for v in (1, 2, 3)}
+    from vvc_torch.kernels.cclm import derive_models_batch
+
+    for cs, idxs in by_size.items():
+        xs = np.array([leaves[i].x0 >> 1 for i in idxs], dtype=np.int32)
+        ys = np.array([leaves[i].y0 >> 1 for i in idxs], dtype=np.int32)
+        modes = np.array([leaves[i].luma_mode for i in idxs])
+        modes = np.where(modes >= 67, 0, modes)  # MIP leaves: DM = planar
+        oy = np.arange(cs)
+        # batched block extraction [N, cs, cs]
+        ds_blocks = ds[ys[:, None, None] + oy[None, :, None],
+                       xs[:, None, None] + oy[None, None, :]].astype(np.int64)
+        for plane in (frame.cb, frame.cr):
+            refs = build_ref_lines_orig_np(plane, xs, ys, cs, bit_depth)
+            pdm = predict_modes_np(refs, modes, cs, bit_depth)
+            obs = plane[ys[:, None, None] + oy[None, :, None],
+                        xs[:, None, None] + oy[None, None, :]].astype(np.int64)
+            cost_dm[idxs] += ((obs - pdm) ** 2).sum(axis=(1, 2))
+            for v in (1, 2, 3):   # LM, LM_L, LM_T
+                ab = derive_models_batch(ds, plane, xs, ys, cs, bit_depth,
+                                         variant=v)
+                plm = (((ab[:, 0:1, None] * ds_blocks) >> 13)
+                       + ab[:, 1:2, None])
+                plm = np.clip(plm, 0, (1 << bit_depth) - 1)
+                cost_lm[v][idxs] += ((obs - plm) ** 2).sum(axis=(1, 2))
+    for i, leaf in enumerate(leaves):
+        costs = [cost_dm[i], cost_lm[1][i], cost_lm[2][i], cost_lm[3][i]]
+        leaf.chroma_mode = int(np.argmin(costs))
 
 
 def tile_columns(num_cols: int, width: int, ctu_size: int):
@@ -120,21 +183,25 @@ class Encoder:
         self.parallel_tiles = parallel_tiles
         self.device = resolve_device(device)
 
-    def _recon_tile(self, frame, recon, leaves_t, qp):
+    def _recon_tile(self, frame, recon, leaves_t, qp, refs=None,
+                    inter_cfg=None):
         """Decision pass + pure-execution reconstruction for one tile
         (tiles cut all prediction/entropy dependencies, so each call is
-        self-contained and parallel)."""
+        self-contained and parallel).  refs: the (l0, l1) lists of (y, cb,
+        cr) reference planes of an inter slice."""
         from vvc_torch.enc.mode_decide import decide_modes
         from vvc_torch.utils import perf
         sps = self.sps
         with perf.phase("recon_decide"):
             preds = decide_modes(leaves_t, (frame.y, frame.cb, frame.cr),
-                                 qp, sps.bit_depth, sps)
+                                 qp, sps.bit_depth, sps,
+                                 inter_cfg=inter_cfg, refs=refs)
         with perf.phase("recon_exec"):
             reconstruct_leaves(leaves_t, recon, qp, sps.bit_depth,
                                orig_planes=(frame.y, frame.cb, frame.cr),
-                               lossless=sps.lossless,
+                               lossless=sps.lossless, refs=refs,
                                dep_quant=sps.dep_quant,
+                               inter_cfg=inter_cfg,
                                pred_cache=preds if preds else None)
 
     def _entropy_tile_native(self, leaves_t, size_map, tx0, tx1, qp,
@@ -232,21 +299,37 @@ class Encoder:
         """Returns (nal_units, recon Frame, stats dict).
 
         rdo_result: optional precomputed (split_map, leaf_map, leaves) from
-        the batched search (rdo_partition_frames / the AI pipeline)."""
+        the batched search (rdo_partition_frames / the AI pipeline).
+        refs_l0/refs_l1: [(poc, Frame), ...] reference pictures (filtered
+        reconstructions, nearest first) for P/B slices; col: the
+        collocated motion field (TMVP); retained_pocs: pictures the DPB
+        keeps beyond the reference lists."""
         sps, pps = self.sps, self.pps
-        if slice_type != SliceType.I or refs_l0 or refs_l1 or col is not None:
-            raise _not_in_slice("inter slices", "the inter slice")
         _check_sps(sps, pps)
         qp = pps.init_qp if qp is None else qp
         bd = sps.bit_depth
+        inter_slice = slice_type != SliceType.I
+        n_ref = (len(refs_l0), len(refs_l1))
+        ref_planes = ([(f.y, f.cb, f.cr) for _, f in refs_l0],
+                      [(f.y, f.cb, f.cr) for _, f in refs_l1])
 
         from vvc_torch.utils import perf
-        # with CCLM the search decides each leaf's chroma mode on the
-        # device, as vvc's every intra path does (its host fallback,
-        # _decide_chroma_modes, serves inter slices only)
+        # with CCLM the intra searches decide each leaf's chroma mode on
+        # the device; the inter search decides luma only, and the host
+        # decides the chroma of its intra leaves (_decide_chroma_modes)
         chroma = (frame.cb, frame.cr) if sps.cclm else None
+        chroma_on_device = sps.cclm
         if rdo_result is not None:
             split_map, leaf_map, leaves = rdo_result
+        elif inter_slice:
+            with perf.phase("search_inter"):
+                split_map, leaf_map, leaves = rdo_inter_partition(
+                    frame.y, [f.y for _, f in refs_l0],
+                    [f.y for _, f in refs_l1],
+                    qp, bd, sps.ctu_size, sps.min_cu_size,
+                    is_b=slice_type == SliceType.B, affine=sps.affine,
+                    device=self.device)
+            chroma_on_device = False
         elif pps.num_tile_cols > 1:
             # per-tile search: prediction references clamp at tile edges,
             # matching the tile reconstruction's availability
@@ -263,6 +346,10 @@ class Encoder:
                 lossless=sps.lossless, lfnst=sps.lfnst, chroma_planes=chroma,
                 mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp,
                 device=self.device)
+        if sps.cclm and not chroma_on_device:
+            intra_leaves = [l for l in leaves if l.pred == 0]
+            if intra_leaves:
+                _decide_chroma_modes(intra_leaves, frame, bd)
 
         cols = tile_columns(pps.num_tile_cols, sps.width, sps.ctu_size)
         rows = tile_columns(pps.num_tile_rows, sps.height, sps.ctu_size)
@@ -276,8 +363,19 @@ class Encoder:
 
         # phase 1: reconstruction per tile (availability maps are per-call,
         # so tiles are isolated and parallel)
+        inter_cfg = None
+        if inter_slice:
+            inter_cfg = {"bdof": sps.bdof, "dmvr": sps.dmvr, "cur_poc": poc,
+                         "ref_pocs": (tuple(p for p, _ in refs_l0),
+                                      tuple(p for p, _ in refs_l1)),
+                         "ciip": sps.ciip, "gpm": sps.gpm, "bcw": sps.bcw,
+                         "col": col, "n_ref": n_ref,
+                         "is_b": slice_type == SliceType.B}
+
         def recon_tile(i):
-            self._recon_tile(frame, recon, leaves_per_tile[i], qp)
+            self._recon_tile(frame, recon, leaves_per_tile[i], qp,
+                             refs=ref_planes if inter_slice else None,
+                             inter_cfg=inter_cfg)
 
         with perf.phase("recon"):
             if self.parallel_tiles and len(tiles) > 1:
@@ -311,9 +409,12 @@ class Encoder:
                     alf_hdr = self._alf(frame, recon, qp)
 
         # phase 3: entropy per tile (parallel).  As in vvc, lossy intra
-        # slices run the native C++ tree writer; lossless, other CTU sizes,
-        # tile rows and tracing the Python TreeWriter.
-        use_native = (sps.ctu_size == 64 and pps.num_tile_rows == 1
+        # slices run the native C++ tree writer; inter slices, lossless,
+        # other CTU sizes, tile rows and tracing the Python TreeWriter.
+        col_info = (col, poc, (tuple(p for p, _ in refs_l0),
+                               tuple(p for p, _ in refs_l1)))
+        use_native = (not inter_slice and sps.ctu_size == 64
+                      and pps.num_tile_rows == 1
                       and not sps.lossless and not _trace().enabled)
         if use_native:
             size_map = native_packer.build_size_map(
@@ -328,7 +429,8 @@ class Encoder:
                 return self._entropy_tile_native(
                     leaves_per_tile[i], size_map, tx0, tx1, qp, sao_ser)
             return self._entropy_tile(split_map, leaf_map, tx0, tx1, qp,
-                                      sao_params, ty0=ty0, ty1=ty1)
+                                      sao_params, slice_type, n_ref,
+                                      col_info, ty0=ty0, ty1=ty1)
 
         with perf.phase("entropy"):
             if self.parallel_tiles and len(tiles) > 1:
@@ -338,6 +440,8 @@ class Encoder:
                 substreams = [entropy_tile(i) for i in range(len(tiles))]
 
         sh = SliceHeader(pps.pps_id, int(slice_type), poc, qp,
+                         l0_deltas=tuple(poc - p for p, _ in refs_l0),
+                         l1_deltas=tuple(poc - p for p, _ in refs_l1),
                          retained_deltas=tuple(poc - p
                                                for p in retained_pocs))
         # ALF parameters ride an APS NAL ahead of the slice (reference:
@@ -364,8 +468,10 @@ class Encoder:
                                     lmcs_enabled=sps.lmcs,
                                     alf_aps_id=alf_aps_id)
         slice_rbsp = header + b"".join(substreams)
+        nal_type = (NalUnitType.IDR_N_LP if slice_type == SliceType.I
+                    else NalUnitType.TRAIL)
         nals = aps_nals + [
-            NalUnit(NalUnitType.IDR_N_LP, slice_rbsp),
+            NalUnit(nal_type, slice_rbsp),
             NalUnit(NalUnitType.SUFFIX_SEI, _hash_sei_payload(recon, bd))]
         rec_frame = Frame(*recon, bd)
         self.last_leaves = leaves
@@ -376,6 +482,11 @@ class Encoder:
             "psnr_cr": psnr(frame.cr, recon[2], bd),
             "n_cu": len(leaves),
             "n_tiles": len(tiles),
+            # leaves by prediction: intra, then inter_dir 1 (L0), 2 (L1),
+            # 3 (bi)
+            "leaf_dirs": [sum(l.pred == 0 for l in leaves)]
+            + [sum(l.pred == 1 and l.inter_dir == d for l in leaves)
+               for d in (1, 2, 3)],
         }
         if sao_params is not None:
             # CTUs per SAO type (OFF, BO, EO) for Y, Cb, Cr
@@ -414,24 +525,28 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
 
     Same signature as vvc.enc.encoder.encode_sequence plus `device`:
     None = CUDA (raises when CUDA is absent), "cpu" = the plain PyTorch
-    path.  It runs mode="ai", lossless or lossy with vvc's default lossy
-    tool set (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF); other
-    modes, the options of slice 2c, rate control, the sharded path and
-    checkpointing raise NotImplementedError naming the slice that brings
-    them.
-    recons/stats are returned in display (POC) order."""
+    path.  mode: "ai" (all-intra), "ldp" (low-delay P), "ldb" (low-delay
+    B), "ra" (random access hierarchical B) — reference:
+    EncGOP::compressGOP GOP structures.  It runs vvc's default lossy tool
+    set (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF; lossless AI
+    too) with translational inter; the options of slices 2c and 4b, rate
+    control and the sharded path raise NotImplementedError naming the
+    slice that brings them.
+    recons/stats are returned in display (POC) order.
+    checkpoint_path: encoder state (DPB recons, NALs so far) is written
+    there after each temporal-layer-0 anchor; resume=True continues an
+    interrupted encode from it, byte-identical to an uninterrupted run.
+    poc_base: slice-header POC offset."""
     from vvc_torch.enc.gop import gop_order
 
-    if mode != "ai":
-        raise _not_in_slice(f"mode={mode!r}", "the inter slice")
     if wpp:
         raise _not_in_slice("WPP row substreams", _SLICE_2C)
     if target_kbps > 0:
         raise _not_in_slice("rate control", _RATE_CONTROL)
     if _precomputed_rdo is not None:
         raise _not_in_slice("the sharded search", "the multi-GPU slice")
-    if checkpoint_path or resume:
-        raise _not_in_slice("checkpointing", "the inter slice")
+    if mctf and mode != "ai":
+        raise _not_in_slice("MCTF", SLICE_4B)
     h, w = frames[0].y.shape
     sps = SPS(width=w, height=h, bit_depth=bit_depth, ctu_size=ctu_size,
               deblocking=not lossless, mts_intra=not lossless,
@@ -460,7 +575,7 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     stats = [None] * len(frames)
     order = gop_order(len(frames), mode, gop_size, intra_period)
 
-    if num_tile_cols == 1 and not lmcs:
+    if mode == "ai" and num_tile_cols == 1 and not lmcs:
         # AI pipeline: every frame's search is queued on the device first
         # (asynchronous launches); a host thread pool then runs transfer +
         # DP, recon and entropy per frame (frames are independent; the
@@ -488,7 +603,7 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
             stats[poc] = s
         return write_annexb(nals), recons, stats
 
-    if num_tile_cols == 1:
+    if mode == "ai" and num_tile_cols == 1:
         # one device search for the whole sequence; host recon/entropy
         # then proceeds per frame
         rdo_results = rdo_partition_frames(
@@ -498,18 +613,80 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
                            if sps.cclm else None),
             mtt=sps.max_mtt_depth_intra > 0, isp=sps.isp, device=enc.device)
     else:
-        rdo_results = None   # per-tile search inside encode_frame
+        rdo_results = None   # per-picture search inside encode_frame
 
-    for e in order:
+    dpb = {}   # poc -> filtered recon Frame (reference: DecLib m_cListPic)
+    col_dpb = {}  # poc -> ColMotion for TMVP
+    # reference marking: a picture stays in the DPB only while a
+    # not-yet-coded entry references it (reference:
+    # Slice::applyReferencePictureListBasedMarking)
+    needed_after = []
+    fut = set()
+    for e in reversed(order):
+        needed_after.append(frozenset(fut))
+        fut.update(e.l0)
+        fut.update(e.l1)
+    needed_after.reverse()
+    start_ei = 0
+    ck_key = (len(frames), qp, mode, gop_size, intra_period, target_kbps,
+              poc_base, w, h, bit_depth)
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        with open(checkpoint_path, "rb") as fh:
+            ck = pickle.load(fh)
+        assert ck["key"] == ck_key, "checkpoint/config mismatch"
+        start_ei = ck["next_ei"]
+        nals = ck["nals"]
+        dpb = ck["dpb"]
+        col_dpb = ck["col_dpb"]
+        for p, r in ck["recons"].items():
+            recons[p] = r
+        for p, st_ in ck["stats"].items():
+            stats[p] = st_
+    for ei, e in enumerate(order):
+        if ei < start_ei:
+            continue
+        f = frames[e.poc]
+        refs_l0 = [(p + poc_base, dpb[p]) for p in e.l0]
+        refs_l1 = [(p + poc_base, dpb[p]) for p in e.l1]
+        # collocated picture: L1[0] for B, L0[0] for P (reference:
+        # Slice::setColFromL0Flag default)
+        col = None
+        if e.slice_type == SliceType.B and e.l1:
+            col = col_dpb.get(e.l1[0])
+        elif e.slice_type == SliceType.P and e.l0:
+            col = col_dpb.get(e.l0[0])
         pic_qp = min(63, qp + e.qp_offset)
         n, r, s = enc.encode_frame(
-            frames[e.poc], e.poc + poc_base,
+            f, e.poc + poc_base,
             rdo_results[e.poc] if rdo_results is not None else None,
-            slice_type=e.slice_type, qp=pic_qp)
+            slice_type=e.slice_type, refs_l0=refs_l0, refs_l1=refs_l1,
+            qp=pic_qp, col=col,
+            retained_pocs=tuple(p + poc_base
+                                for p in sorted(needed_after[ei])))
+        col_dpb[e.poc] = motion_field_from_leaves(
+            enc.last_leaves, w, h, e.poc + poc_base,
+            (tuple(p + poc_base for p in e.l0),
+             tuple(p + poc_base for p in e.l1)))
         nals += n
+        dpb[e.poc] = r
         recons[e.poc] = r
         s["slice_type"] = int(e.slice_type)
         s["poc"] = e.poc
         s["qp"] = pic_qp
         stats[e.poc] = s
+        # DPB bump: drop pictures no future entry references
+        for p in [p for p in dpb if p not in needed_after[ei]]:
+            del dpb[p]
+            col_dpb.pop(p, None)
+        if (checkpoint_path and ei + 1 < len(order)
+                and order[ei + 1].tid == 0):
+            with open(checkpoint_path + ".tmp", "wb") as fh:
+                pickle.dump({"key": ck_key, "next_ei": ei + 1,
+                             "nals": nals, "dpb": dpb,
+                             "col_dpb": col_dpb, "rc": None,
+                             "recons": {p: r for p, r in enumerate(recons)
+                                        if r is not None},
+                             "stats": {p: st_ for p, st_ in enumerate(stats)
+                                       if st_ is not None}}, fh)
+            os.replace(checkpoint_path + ".tmp", checkpoint_path)
     return write_annexb(nals), recons, stats

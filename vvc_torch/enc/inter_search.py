@@ -1,0 +1,421 @@
+"""Batched inter search: window motion estimation + mode decision.
+
+Port of vvc/enc/inter_search.py (reference: InterSearch.cpp →
+predInterSearch / xMotionEstimation; EncCu.cpp → xCheckRDCostInter), the
+translational part that vvc's default tool set runs for every P and B
+picture (`rdo_inter_partition`):
+
+  * Program (1), the intra search of every candidate size, is the ported
+    single-frame `eval_all_sizes` (luma only), as in vvc.
+  * Program (2): the references' padded and ds4 planes (`me.pic_dev`,
+    kernel `me_prep`, cached per picture), one coarse full search over all
+    of them (`me.coarse_search`, kernel `me_coarse`), then per size class
+    64, 32 and 16 `me_v2_program`: per (list, ref) the integer window
+    refine (kernel `me_int`) and the quarter-pel refine (kernel `me_qpel`)
+    of every block, the running minimum over refs (`_run_min`), and
+    `_finish`: list choice, the bi average checked by SATD (kernel
+    `satd`), the MVD bits and the DCT2 RD cost (`_inter_rd`: kernels
+    `transform_fwd`, `quant_rate` with the inter dead zone,
+    `transform_inv`).  The 8×8 children ride the 16×16 program: each
+    evaluates its parent's window with the parent's centre.
+  * One packed float32 vector per size comes back; the host unpack and
+    the DP (`_dp_backtrack_inter`, copied unchanged) pick split, intra or
+    inter per node.
+
+The packed vectors are bit-equal to vvc's on XLA-CPU (jax 0.9.0): λ and √λ
+are float32 bit tables (vvc_torch.enc.rdo), the MVD bits are
+(log2(1+|Δx|) + log2(1+|Δy|)) + 6 with XLA's float32 `log` and its
+contraction fma(log(1+|Δx|), 1/ln 2, log(1+|Δy|)·(1/ln 2)), and the RD
+cost is fma(λ, rate + bits, sse) with the rate summed in XLA's order
+(`quant_rate`).
+
+vvc's DP looks the intra costs up by int size in a dict keyed by (w, h)
+shapes, so it never finds them: every leaf of an inter picture is inter,
+and program (1) is computed and not read.  The port reproduces this.
+
+Options of later slices raise NotImplementedError naming the slice: the
+affine search (slice 4b).
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from vvc_torch.enc import me as me_mod
+from vvc_torch.enc.rdo import (SPLIT_BITS, _candidate_sizes, _fma_f32,
+                               _sse_f32, eval_all_sizes, lambda_f32,
+                               pack_planes, rd_lambda, unpack_results)
+from vvc_torch.kernels.quant import quant_rate
+from vvc_torch.kernels.satd import satd_batch
+from vvc_torch.kernels.transform import (fwd_transform_batch,
+                                         inv_transform_batch)
+from vvc_torch.model.frame import Leaf
+from vvc_torch.model.partition import SPLIT_NONE, SPLIT_QT
+from vvc_torch.ops import resolve_device
+from vvc_torch.rom.log_table import xla_log_f32
+
+ME_SIZES_MIN = 8       # integer ME at sizes >= this (8×8 searches a small
+                       # window centered on the parent 16×16 MV)
+
+# float32 bits of 1/ln 2: XLA folds log2(x) = log(x)·(1/ln 2)
+_INV_LN2 = np.array([0x3FB8AA3B], dtype=np.uint32).view(np.float32)[0]
+
+SLICE_4B = ("slice 4b (affine ME, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, "
+            "AMVR, SMVD, BCW)")
+
+
+@lru_cache(maxsize=None)
+def _log_dev(device: str) -> torch.Tensor:
+    return torch.from_numpy(xla_log_f32().copy()).to(device)
+
+
+def _mvd_bits(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """vvc's `_finish` MVD bits log2(1 + |Δx|) + log2(1 + |Δy|) + 6 in
+    float32 as XLA-CPU computes it: fma(log(1+|Δx|), 1/ln 2,
+    log(1+|Δy|)·(1/ln 2)) + 6, XLA's float32 log."""
+    tab = _log_dev(str(dx.device))
+    lx, ly = tab[dx.abs().long()], tab[dy.abs().long()]
+    return _fma_f32(_INV_LN2, lx, ly * _INV_LN2) + np.float32(6.0)
+
+
+def _inter_rd(orig, pred, qp: int, bit_depth: int, extra_bits):
+    """vvc/enc/inter_search.py:156 `_inter_rd_dev`: DCT2 RD cost of coding
+    orig over the inter prediction → [N] float32,
+    fma(λ, rate + extra_bits, sse) with the inter dead zone."""
+    lam, _ = lambda_f32(qp)
+    resi = orig - pred
+    coeff = fwd_transform_batch(resi, bit_depth, 0, 0)
+    rate, deq = quant_rate(coeff, qp, bit_depth, intra=False)
+    rec_resi = inv_transform_batch(deq, bit_depth, 0, 0)
+    rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
+    sse = _sse_f32(rec - orig)
+    return _fma_f32(lam, rate + extra_bits, sse)
+
+
+def _reorder_children(f, nye: int, nxe: int, ny8: int, nx8: int):
+    """Child field [4·N16e, …] (parent-major, sub (0,0),(0,1),(1,0),(1,1))
+    → raster [ny8·nx8, …]."""
+    tail = tuple(f.shape[1:])
+    g = f.reshape((nye, nxe, 2, 2) + tail)
+    perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(tail)))
+    g = g.permute(perm).reshape((2 * nye, 2 * nxe) + tail)
+    return g[:ny8, :nx8].reshape((-1,) + tail)
+
+
+def _run_min(best, ent):
+    m = ent["cost"] < best["cost"]
+    mm = m[:, None, None]
+    return dict(mvy=torch.where(m, ent["mvy"], best["mvy"]),
+                mvx=torch.where(m, ent["mvx"], best["mvx"]),
+                cost=torch.where(m, ent["cost"], best["cost"]),
+                pred=torch.where(mm, ent["pred"], best["pred"]),
+                ref=torch.where(m, ent["ref"], best["ref"]))
+
+
+def _finish(l0, l1, ob, qp: int, bit_depth: int, lam_m, ny: int, nx: int,
+            is_b: bool):
+    """vvc/enc/inter_search.py:183 `_finish` (affine off): per-block list
+    selection, bi check, RD and the packed float32 fields."""
+    n = ob.shape[0]
+    dev = ob.device
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    dirs = torch.ones(n, dtype=torch.int32, device=dev)
+    if is_b and l1 is not None:
+        dirs = torch.where(l1["cost"] < l0["cost"], 2, 1).to(torch.int32)
+        pbi = (l0["pred"] + l1["pred"] + 1) >> 1
+        # satd + √λ·8: the product is exact, so one rounding either way
+        cbi = _fma_f32(lam_m, torch.full((n,), 8.0, device=dev),
+                             satd_batch(pbi, ob).to(torch.float32))
+        cuni = torch.where(dirs == 2, l1["cost"], l0["cost"])
+        dirs = torch.where(cbi < cuni, 3, dirs).to(torch.int32)
+        pred = torch.where((dirs == 3)[:, None, None], pbi,
+                           torch.where((dirs == 2)[:, None, None],
+                                       l1["pred"], l0["pred"]))
+    else:
+        l1 = dict(mvy=zero, mvx=zero, ref=zero)
+        pred = l0["pred"]
+    # signalling bits: MVD vs the left-neighbour predictor (AMVP-rate
+    # analog) + flags
+    pmx = l0["mvx"].reshape(ny, nx)
+    pmy = l0["mvy"].reshape(ny, nx)
+    zc = torch.zeros((ny, 1), dtype=pmx.dtype, device=dev)
+    pmx = torch.cat([zc, pmx[:, :-1]], 1).reshape(-1)
+    pmy = torch.cat([zc, pmy[:, :-1]], 1).reshape(-1)
+    mvb = _mvd_bits(l0["mvx"] - pmx, l0["mvy"] - pmy)
+    rd = _inter_rd(ob, pred, qp, bit_depth, mvb)
+    cp = torch.zeros(n * 6, dtype=torch.float32, device=dev)
+    out = [rd, dirs, l0["mvx"], l0["mvy"], l0["ref"], l1["mvx"], l1["mvy"],
+           l1["ref"], zero]
+    return torch.cat([o.to(torch.float32).reshape(-1) for o in out]
+                     + [cp, cp])
+
+
+def _blocks(plane, nby: int, nbx: int, s: int):
+    return (plane[:nby * s, :nbx * s].reshape(nby, s, nbx, s)
+            .permute(0, 2, 1, 3).reshape(-1, s, s).contiguous())
+
+
+def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
+                  w: int, h: int, n_l0: int, n_l1: int, is_b: bool,
+                  children: bool):
+    """vvc/enc/inter_search.py:249 `_me_v2_program` (affine off): one size
+    class over every (list, ref) → (packed_parent, packed_child | None)
+    float32 vectors.  y [h, w] int32; refpad [R, h+2P, w+2P] (l0 refs then
+    l1); coarse [R, nc_y, nc_x, 2] full-pel (mvy, mvx) for this size (the
+    16-grid with children)."""
+    s = size
+    dev = y.device
+    if children:
+        ny8, nx8 = h // 8, w // 8
+        nye, nxe = (ny8 + 1) // 2, (nx8 + 1) // 2
+    else:
+        nye, nxe = h // s, w // s
+    n = nye * nxe
+    yp = y
+    if nye * s > h or nxe * s > w:
+        ry = torch.arange(nye * s, device=dev).clamp(max=h - 1)
+        rx = torch.arange(nxe * s, device=dev).clamp(max=w - 1)
+        yp = y[ry][:, rx]
+    ob = _blocks(yp, nye, nxe, s).to(torch.int32)
+    xs = (torch.arange(nxe, device=dev, dtype=torch.int32) * s).repeat(nye)
+    ys = (torch.arange(nye, device=dev, dtype=torch.int32) * s
+          ).repeat_interleave(nxe)
+    _, lam_m = lambda_f32(qp)
+
+    nc_y, nc_x = coarse.shape[1], coarse.shape[2]
+    giy = (torch.arange(nye, device=dev).repeat_interleave(nxe)
+           ).clamp(max=nc_y - 1)
+    gix = torch.arange(nxe, device=dev).repeat(nye).clamp(max=nc_x - 1)
+    if children:
+        sub_y = torch.tensor([0, 0, 8, 8], dtype=torch.int32, device=dev)
+        sub_x = torch.tensor([0, 8, 0, 8], dtype=torch.int32, device=dev)
+        ys_c = (ys[:, None] + sub_y).reshape(-1)
+        xs_c = (xs[:, None] + sub_x).reshape(-1)
+        obc = (yp[:nye * 16, :nxe * 16].reshape(nye, 2, 8, nxe, 2, 8)
+               .permute(0, 3, 1, 4, 2, 5).reshape(-1, 8, 8)
+               .to(torch.int32).contiguous())
+
+    n_refs = (n_l0, n_l1 if is_b else 0)
+    per_list = [None, None]
+    child_list = [None, None]
+    for li in (0, 1):
+        best = cbest = None
+        for ridx in range(n_refs[li]):
+            st = ridx if li == 0 else n_l0 + ridx
+            rp = refpad[st]
+            iy, ix, cy, cx = me_mod.int_refine(
+                rp, ob, ys, xs, coarse[st, giy, gix, 0],
+                coarse[st, giy, gix, 1], lam_m, s, h, w)
+            mvy, mvx, cost, pred = me_mod.qpel_refine(
+                rp, ob, ys, xs, iy, ix, lam_m, s, bit_depth)
+            ent = dict(mvy=mvy, mvx=mvx, cost=cost, pred=pred,
+                       ref=torch.full((n,), ridx, dtype=torch.int32,
+                                      device=dev))
+            best = ent if best is None else _run_min(best, ent)
+            if children:
+                # the four 8×8 sub-blocks search their parent's window
+                # around the parent's (clipped) centre
+                iyc, ixc, _, _ = me_mod.int_refine(
+                    rp, obc, ys_c, xs_c, cy.repeat_interleave(4),
+                    cx.repeat_interleave(4), lam_m, 8, h, w)
+                mvy, mvx, cost, pred = me_mod.qpel_refine(
+                    rp, obc, ys_c, xs_c, iyc, ixc, lam_m, 8, bit_depth)
+                cent = dict(mvy=mvy, mvx=mvx, cost=cost, pred=pred,
+                            ref=torch.full((4 * n,), ridx, dtype=torch.int32,
+                                           device=dev))
+                cbest = cent if cbest is None else _run_min(cbest, cent)
+        per_list[li] = best
+        child_list[li] = cbest
+
+    # parent grids: slice synthetic rows/cols before the finish pass
+    nyv, nxv = h // s, w // s
+    if children and (nye != nyv or nxe != nxv):
+        def _sl(f):
+            tail = tuple(f.shape[1:])
+            return (f.reshape((nye, nxe) + tail)[:nyv, :nxv]
+                    .reshape((-1,) + tail))
+        per_list = [None if d is None else {k: _sl(v) for k, v in d.items()}
+                    for d in per_list]
+        ob_f = _blocks(y, nyv, nxv, s).to(torch.int32)
+    else:
+        ob_f = ob
+    packed = _finish(per_list[0], per_list[1], ob_f, qp, bit_depth, lam_m,
+                     nyv, nxv, is_b)
+    packed_c = None
+    if children:
+        cl = [None if d is None else
+              {k: _reorder_children(v, nye, nxe, ny8, nx8)
+               for k, v in d.items()} for d in child_list]
+        ob8 = _blocks(y, ny8, nx8, 8).to(torch.int32)
+        packed_c = _finish(cl[0], cl[1], ob8, qp, bit_depth, lam_m,
+                           ny8, nx8, is_b)
+    return packed, packed_c
+
+
+_FIELDS = ("cost", "dir", "mvx0", "mvy0", "ref0", "mvx1", "mvy1", "ref1",
+           "aff")
+
+
+def unpack_inter(v: np.ndarray, s: int, w: int, h: int):
+    """Host-side inverse of a size's packed vector → {field: [ny, nx]}
+    (vvc/enc/inter_search.py:479-494)."""
+    ny, nx = h // s, w // s
+    n = ny * nx
+    ent = {}
+    off = 0
+    for f in _FIELDS:
+        fv = v[off:off + n]
+        ent[f] = (fv if f == "cost" else fv.astype(np.int32)).reshape(ny, nx)
+        off += n
+    ent["cp0"] = v[off:off + n * 6].astype(np.int32).reshape(ny, nx, 3, 2)
+    off += n * 6
+    ent["cp1"] = v[off:off + n * 6].astype(np.int32).reshape(ny, nx, 3, 2)
+    return ent
+
+
+def rdo_inter_partition(y_plane: np.ndarray, refs_l0, refs_l1, qp: int,
+                        bit_depth: int = 8, ctu_size: int = 64,
+                        min_cu: int = 8, is_b: bool = False,
+                        search_range: int = 32, mts_enabled: bool = True,
+                        affine: bool = False, device=None):
+    """Partition + per-CU mode decision for a P/B frame (same signature as
+    vvc's plus `device`: None = CUDA, raises without it; "cpu" runs the
+    plain path).  refs_l0 / refs_l1: lists of reference luma planes
+    (nearest first).  Returns (split_map, leaf_map, leaves) with the inter
+    fields set."""
+    if affine:
+        raise NotImplementedError(
+            f"vvc_torch: the affine search arrives with {SLICE_4B}")
+    dev = resolve_device(device)
+    h, w = y_plane.shape
+    sizes = _candidate_sizes(ctu_size, min_cu)
+
+    # program (1): intra costs for all sizes, as vvc runs it
+    packed_intra = eval_all_sizes(
+        torch.from_numpy(pack_planes(y_plane)).to(dev), tuple(sizes), qp,
+        bit_depth, w, h)
+
+    # program (2): cached padded + ds4 reference planes (l0 then l1)
+    n_l0, n_l1 = len(refs_l0), len(refs_l1) if is_b else 0
+    pads, dss = [], []
+    for ref in list(refs_l0) + (list(refs_l1) if is_b else []):
+        pp, ds = me_mod.pic_dev(ref, dev)
+        pads.append(pp)
+        dss.append(ds)
+    refpad = torch.stack(pads)
+    y_dev = torch.from_numpy(np.ascontiguousarray(y_plane, dtype=np.int32)
+                             ).to(dev)
+    _, yds = me_mod.prep_ref(y_dev)
+    coarse = me_mod.coarse_search(yds, torch.stack(dss), me_mod.COARSE_R)
+
+    me_sizes = sorted([s for s in sizes if ME_SIZES_MIN <= s <= 64],
+                      reverse=True)
+    packed_by_size = {}
+    for s in me_sizes:
+        if s == 8 or h < s or w < s:
+            continue                       # 8 rides the 16-program
+        children = (s == 16 and 8 in me_sizes)
+        pk, pkc = me_v2_program(y_dev, refpad, coarse[s], qp, s, bit_depth,
+                                w, h, n_l0, n_l1, is_b, children)
+        packed_by_size[s] = pk
+        if children:
+            packed_by_size[8] = pkc
+
+    intra_res = unpack_results(packed_intra.cpu().numpy(), sizes, w, h)
+    inter = {s: unpack_inter(packed_by_size[s].cpu().numpy(), s, w, h)
+             for s in me_sizes if s in packed_by_size}
+    return _dp_backtrack_inter(intra_res, inter, w, h, qp, sizes, ctu_size,
+                               min_cu)
+
+
+def _dp_backtrack_inter(intra_res, inter, w, h, qp, sizes, ctu_size, min_cu):
+    """Bottom-up DP over the size pyramid with per-node intra/inter choice
+    (mirrors rdo._dp_backtrack; kept separate for the extra payloads)."""
+    lam = rd_lambda(qp)
+    cost, choose_inter = {}, {}
+    for s in sizes:
+        nx, ny = w // s, h // s
+        cost[s] = np.full((ny, nx), np.inf)
+        choose_inter[s] = np.zeros((ny, nx), dtype=bool)
+        if s in intra_res:
+            cost[s][:] = intra_res[s][0]
+        if s in inter:
+            ic = inter[s]["cost"]
+            choose_inter[s] = ic < cost[s]
+            cost[s] = np.minimum(cost[s], ic)
+
+    best = {min_cu: cost[min_cu].copy()}
+    use_split = {}
+    for s in sizes[1:]:
+        half = s // 2
+        ny, nx = h // s, w // s
+        ch = best[half]
+        child_sum = (ch[0::2, 0::2][:ny, :nx] + ch[0::2, 1::2][:ny, :nx]
+                     + ch[1::2, 0::2][:ny, :nx] + ch[1::2, 1::2][:ny, :nx])
+        split_cost = child_sum + lam * SPLIT_BITS
+        leaf_cost = cost[s][:ny, :nx] + lam * SPLIT_BITS
+        use_split[s] = split_cost < leaf_cost
+        best[s] = np.where(use_split[s], split_cost, leaf_cost)
+
+    split_map, leaf_map, leaves = {}, {}, []
+
+    def make_leaf(x0, y0, s):
+        by, bx = y0 // s, x0 // s
+        if choose_inter[s][by, bx]:
+            e = inter[s]
+            d = int(e["dir"][by, bx])
+            if "aff" in e and int(e["aff"][by, bx]):
+                cp = e["cp0"] if d == 1 else e["cp1"]
+                cpmv = tuple((int(cp[by, bx, c, 0]), int(cp[by, bx, c, 1]))
+                             for c in range(2))
+                cps = [None, None]
+                cps[d - 1] = cpmv
+                return Leaf(x0, y0, s, s, pred=1, inter_dir=d,
+                            ref_idx=(0, 0), affine=4, cpmv=tuple(cps))
+            mv = [(int(e["mvx0"][by, bx]), int(e["mvy0"][by, bx])), (0, 0)]
+            ref = [int(e["ref0"][by, bx]), 0]
+            if d >= 2:
+                mv[1] = (int(e["mvx1"][by, bx]), int(e["mvy1"][by, bx]))
+                ref[1] = int(e["ref1"][by, bx])
+                if d == 2:
+                    mv[0] = (0, 0)
+                    ref[0] = 0
+            return Leaf(x0, y0, s, s, pred=1, inter_dir=d, mv=tuple(mv),
+                        ref_idx=tuple(ref))
+        mode = int(intra_res[s][1][by, bx]) if s in intra_res else 0
+        mts = int(intra_res[s][2][by, bx]) if s in intra_res else 0
+        return Leaf(x0, y0, s, s, mode, mts=mts)
+
+    def walk(x0, y0, s):
+        if x0 >= w or y0 >= h:
+            return
+        if s > 64:
+            # MaxCUSize 64: CTU-128 nodes split implicitly (no flag)
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+            return
+        inside = x0 + s <= w and y0 + s <= h
+        if not inside:
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+            return
+        if s > min_cu and use_split[s][y0 // s, x0 // s]:
+            split_map[(x0, y0, s, s)] = SPLIT_QT
+            half = s // 2
+            for dx, dy in ((0, 0), (half, 0), (0, half), (half, half)):
+                walk(x0 + dx, y0 + dy, half)
+        else:
+            if s > min_cu:
+                split_map[(x0, y0, s, s)] = SPLIT_NONE
+            leaf = make_leaf(x0, y0, s)
+            leaf_map[(x0, y0, s, s)] = leaf
+            leaves.append(leaf)
+
+    for cy in range(0, h, ctu_size):
+        for cx in range(0, w, ctu_size):
+            walk(cx, cy, ctu_size)
+    return split_map, leaf_map, leaves

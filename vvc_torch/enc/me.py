@@ -1,0 +1,500 @@
+"""Window-based batched motion estimation — the translational part.
+
+Port of vvc/enc/me.py (reference: InterSearch.cpp → xMotionEstimation /
+xTZSearch / xPatternSearchFracDIF), the engine of the inter search's
+device program (vvc_torch.enc.inter_search):
+
+  1. PREP (`prep_ref`, CUDA kernel `me_prep`): a reference picture
+     edge-padded by PAD and its 4×4-block mean plane (ds4), once per
+     picture (`pic_dev` caches them, as vvc's cache does).
+  2. COARSE (`coarse_search`, kernel `me_coarse`): full search on the ds4
+     planes over ±COARSE_R, every 4×4 / 8×8 / 16×16 ds4 cell (the 16, 32
+     and 64 blocks) of every reference at once; cost SSE + ½ MV bits.
+  3. INT (`int_refine`, kernel `me_int`): per block, the window of
+     (s + 2·WIN_M)² reference samples at the clipped coarse centre and the
+     81 integer displacements in ±R2, cost SSE + √λ·MV bits.
+  4. QPEL (`qpel_refine`, kernel `me_qpel`): the 49 quarter-pel offsets in
+     ±3 around the integer winner, through the normative 8-tap DCTIF, cost
+     SATD + √λ·MV bits; returns the winner's prediction.
+
+vvc's `_int_refine` re-centres the window (w2) with one-hot sums; here the
+quarter-pel stage reads the re-centred window straight from the padded
+reference: w2's origin is (ys + PAD + iy − M2, xs + PAD + ix − M2).  (The
+affine search of slice 4b consumes w2 and reads it the same way.)
+
+Each stage has a plain PyTorch twin (`*_plain`) with the same integer
+semantics.  The float32 costs are bit-equal to vvc's on XLA-CPU (read from
+the optimised IR of its jitted programs, jax 0.9.0): XLA's own `log`
+(vvc_torch/rom/log_table.py), the MV bits `2·log2(1+|d|) + 1` as one FMA
+fma(log(1+|d|), 2/ln 2, 1), `cost = fma(√λ, bits_y + bits_x, sse)`, the
+coarse cell sums (c8 = (c4₀₀ + c4₀₁) + (c4₁₀ + c4₁₁), c16 likewise), and
+SSE sums above 2^24 in XLA's order (`sse_f32_me`).  Every argmin keeps
+the first minimum (strict `<` in vvc's candidate order).
+
+Not ported here (slice 4b): `affine_search_win`, `_affine_dctif_pred`,
+`me_pred_v2` (MCTF); `eval_ref` has no caller in vvc (queue end).
+"""
+from __future__ import annotations
+
+import ctypes
+import weakref
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from vvc_torch import ops
+from vvc_torch.cabac.rates import log_scale_f32
+from vvc_torch.enc.rdo import _fma_f32
+from vvc_torch.kernels.mc import LUMA_FILTERS
+from vvc_torch.kernels.satd import satd_batch_plain
+from vvc_torch.rom.log_table import xla_log_f32
+
+PAD = 16        # edge padding baked into cached reference planes
+R2 = 4          # full-res integer refinement radius around the coarse MV
+WIN_M = 10      # window margin each side of the block (R2 + M2)
+M2 = 6          # re-centered window margin (8-tap support + ±2 int pel)
+COARSE_R = 8    # coarse search radius in ds4 units (±32 full-res)
+
+# |MV component| range covered by the MV-bits table (qpel units; the
+# search reaches about 4·(32 + 8) + 3)
+MV_BITS_N = 4096
+
+
+# --------------------------------------------------------------------
+# float32 rates as vvc's jitted programs compute them on XLA-CPU
+# --------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def mv_bits_table() -> np.ndarray:
+    """[MV_BITS_N] float32: vvc's `_mv_bits(d) = 2·log2(1 + |d|) + 1` for
+    |d| = 0..MV_BITS_N-1, bit for bit: XLA lowers it to one FMA,
+    fma(log(1 + |d|), 2/ln 2, 1), with its own float32 log.  The float64
+    product and sum are exact (≤ 48 + 5 bits), so the cast rounds once."""
+    log = xla_log_f32()[:MV_BITS_N].astype(np.float64)      # log(1 + |d|)
+    val = (log * np.float64(log_scale_f32()) + 1.0).astype(np.float32)
+    val.setflags(write=False)
+    return val
+
+
+@lru_cache(maxsize=None)
+def _mv_bits_dev(device: str) -> torch.Tensor:
+    return torch.from_numpy(mv_bits_table().copy()).to(device)
+
+
+def mv_bits(d: torch.Tensor) -> torch.Tensor:
+    """vvc's `_mv_bits` of an integer tensor → float32."""
+    a = d.abs().long()
+    assert int(a.max()) < MV_BITS_N if a.numel() else True
+    return _mv_bits_dev(str(d.device))[a]
+
+
+@lru_cache(maxsize=None)
+def coarse_bias_table(r: int = COARSE_R) -> np.ndarray:
+    """[(2r+1)²] float32: the coarse search's per-displacement bias
+    0.5·(_mv_bits(16·dx) + _mv_bits(16·dy)), d = 0..(2r+1)²−1 with
+    dy = d // (2r+1) − r, dx = d % (2r+1) − r (one float32 add, then the
+    exact halving)."""
+    D = 2 * r + 1
+    d = np.arange(D * D)
+    t = mv_bits_table()
+    bx = t[np.abs(16 * (d % D - r))]
+    by = t[np.abs(16 * (d // D - r))]
+    out = ((bx + by) * np.float32(0.5)).astype(np.float32)
+    out.setflags(write=False)
+    return out
+
+
+def _seq_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """[M, K] float32 → [M]: summed left to right from 0 in float32."""
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def sse_f32_me(d: torch.Tensor) -> torch.Tensor:
+    """Σ d² per [M, S, S] block as vvc's `_int_refine` sums it in float32.
+    Below 2^24 every partial sum is an exact integer, so the exact int64
+    sum is the answer.  Above (10-bit noise at S ≥ 8, 8 bit at S ≥ 32),
+    XLA's order: S = 8, 16, 32 sequentially in row-major order; S = 64 in
+    four 32×32 windows, each row-major from 0, then
+    (W00 + W01) + (W10 + W11)."""
+    m, s, _ = d.shape
+    dl = d.to(torch.int64)
+    exact = (dl * dl).sum(dim=(1, 2))
+    out = exact.to(torch.float32)
+    big = exact >= (1 << 24)
+    if bool(big.any()):
+        sq = (dl[big] * dl[big]).to(torch.float32)
+        if s == 64:
+            win = sq.reshape(-1, 2, 32, 2, 32).permute(0, 1, 3, 2, 4)
+            w_ = [_seq_sum_f32(win[:, i, j].reshape(-1, 1024))
+                  for i in (0, 1) for j in (0, 1)]
+            out[big] = (w_[0] + w_[1]) + (w_[2] + w_[3])
+        else:
+            out[big] = _seq_sum_f32(sq.reshape(-1, s * s))
+    return out
+
+
+# --------------------------------------------------------------------
+# per-picture prep: edge-padded plane + ds4 plane
+# --------------------------------------------------------------------
+
+def prep_ref_plain(plane: torch.Tensor):
+    """Plain twin of vvc/enc/me.py:73 `_prep_ref`: [H, W] int32 →
+    (padded [H+2·PAD, W+2·PAD] edge-replicated, ds4 [⌈H/4⌉, ⌈W/4⌉] the
+    floor mean of each 4×4 block of the edge-padded plane)."""
+    h, w = plane.shape
+    dev = plane.device
+    p = plane.to(torch.int32)
+    ry = torch.arange(-PAD, h + PAD, device=dev).clamp(0, h - 1)
+    rx = torch.arange(-PAD, w + PAD, device=dev).clamp(0, w - 1)
+    pp = p[ry][:, rx].contiguous()
+    h4, w4 = (h + 3) // 4, (w + 3) // 4
+    ey = torch.arange(4 * h4, device=dev).clamp(max=h - 1)
+    ex = torch.arange(4 * w4, device=dev).clamp(max=w - 1)
+    pe = p[ey][:, ex]
+    ds = torch.div(pe.reshape(h4, 4, w4, 4).sum(dim=(1, 3)), 16,
+                   rounding_mode="floor").to(torch.int32)
+    return pp, ds.contiguous()
+
+
+def _prep_ref_cuda(plane: torch.Tensor):
+    ops.check_cuda_i32("me_prep", plane)
+    h, w = plane.shape
+    h4, w4 = (h + 3) // 4, (w + 3) // 4
+    pp = torch.empty((h + 2 * PAD, w + 2 * PAD), dtype=torch.int32,
+                     device=plane.device)
+    ds = torch.empty((h4, w4), dtype=torch.int32, device=plane.device)
+    fn = ops.lib("me_prep").me_prep_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(plane.data_ptr(), pp.data_ptr(), ds.data_ptr(), h, w, PAD,
+             ops.stream_ptr(plane))
+    ops.launched("me_prep", err)
+    return pp, ds
+
+
+def prep_ref(plane: torch.Tensor):
+    """[H, W] int32 → (padded plane, ds4 plane).  CUDA tensor →
+    vvc_torch/csrc/me.cu `me_prep`; CPU tensor or `ops.plain()` →
+    prep_ref_plain."""
+    if ops.use_kernel(plane):
+        return _prep_ref_cuda(plane.contiguous())
+    return prep_ref_plain(plane)
+
+
+_CACHE: dict = {}
+_ORDER: list = []
+
+
+def pic_dev(arr: np.ndarray, device):
+    """(padded [H+2P, W+2P], ds4 [⌈H/4⌉, ⌈W/4⌉]) of a reference picture on
+    `device`, cached per ndarray object (weakref-validated, 12 entries, as
+    vvc's cache: a recon referenced by several B pictures preps once)."""
+    dev = torch.device(device)
+    key = (id(arr), str(dev))
+    ent = _CACHE.get(key)
+    if ent is not None and ent[0]() is arr:
+        return ent[1], ent[2]
+    plane = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)
+                             ).to(dev)
+    pp, ds = prep_ref(plane)
+    _CACHE[key] = (weakref.ref(arr), pp, ds)
+    _ORDER.append(key)
+    while len(_ORDER) > 12:
+        _CACHE.pop(_ORDER.pop(0), None)
+    return pp, ds
+
+
+# --------------------------------------------------------------------
+# coarse full search on ds4 planes
+# --------------------------------------------------------------------
+
+def _coarse_dims(h4: int, w4: int):
+    hp, wp = -(-h4 // 16) * 16, -(-w4 // 16) * 16
+    return hp // 4, wp // 4
+
+
+def _grids_from_args(args, r: int):
+    D = 2 * r + 1
+    out = {}
+    for s, a in zip((16, 32, 64), args):
+        out[s] = torch.stack([(a // D - r) * 4, (a % D - r) * 4],
+                             dim=-1).to(torch.int32)
+    return out
+
+
+def coarse_search_plain(yds: torch.Tensor, refds: torch.Tensor,
+                        r: int = COARSE_R):
+    """Plain twin of vvc/enc/me.py:108 `_coarse_program`: yds [h4, w4],
+    refds [R, h4, w4] → {16: [R, n4y, n4x, 2], 32: …/2, 64: …/4} int32
+    full-pel (mvy, mvx), grids padded to a multiple-of-16 ds extent.  The
+    displacement loop runs d = 0..(2r+1)²−1 on the edge-padded refs; each
+    4×4 cell's SSE is an exact integer, the bias is added in float32, and
+    the 8×8 / 16×16 cells are (a + b) + (c + d) of their four quarters."""
+    R, h4, w4 = refds.shape
+    dev = refds.device
+    D = 2 * r + 1
+    n4y, n4x = _coarse_dims(h4, w4)
+    bias = coarse_bias_table(r)
+    yv = yds.to(torch.int64)
+    inf = float("inf")
+    best = [torch.full((R, n4y // k, n4x // k), inf, device=dev)
+            for k in (1, 2, 4)]
+    arg = [torch.zeros((R, n4y // k, n4x // k), dtype=torch.int64,
+                       device=dev) for k in (1, 2, 4)]
+    ay, ax = torch.arange(h4, device=dev), torch.arange(w4, device=dev)
+
+    def quad(c):
+        return ((c[:, 0::2, 0::2] + c[:, 0::2, 1::2])
+                + (c[:, 1::2, 0::2] + c[:, 1::2, 1::2]))
+
+    for d in range(D * D):
+        dy, dx = d // D - r, d % D - r
+        sh = refds[:, (ay + dy).clamp(0, h4 - 1)][:, :, (ax + dx).clamp(
+            0, w4 - 1)].to(torch.int64)
+        sq = torch.zeros((R, 4 * n4y, 4 * n4x), dtype=torch.int64,
+                         device=dev)
+        sq[:, :h4, :w4] = (yv[None] - sh) ** 2
+        c4 = (sq.reshape(R, n4y, 4, n4x, 4).sum(dim=(2, 4))
+              .to(torch.float32) + torch.tensor(bias[d], device=dev))
+        c8 = quad(c4)
+        c16 = quad(c8)
+        for i, c in enumerate((c4, c8, c16)):
+            m = c < best[i]
+            best[i] = torch.where(m, c, best[i])
+            arg[i] = torch.where(m, torch.full_like(arg[i], d), arg[i])
+    return _grids_from_args(arg, r)
+
+
+def _coarse_cuda(yds: torch.Tensor, refds: torch.Tensor, r: int):
+    ops.check_cuda_i32("me_coarse", yds, refds)
+    if r != COARSE_R:
+        raise ValueError("me_coarse: the kernel is built for r = 8")
+    R, h4, w4 = refds.shape
+    n4y, n4x = _coarse_dims(h4, w4)
+    dev = refds.device
+    bias = _coarse_bias_dev(str(dev), r)
+    outs = [torch.empty((R, n4y // k, n4x // k, 2), dtype=torch.int32,
+                        device=dev) for k in (1, 2, 4)]
+    fn = ops.lib("me_coarse").me_coarse_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(yds.data_ptr(), refds.data_ptr(), bias.data_ptr(),
+             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+             R, h4, w4, n4y, n4x, ops.stream_ptr(refds))
+    ops.launched("me_coarse", err)
+    return dict(zip((16, 32, 64), outs))
+
+
+@lru_cache(maxsize=None)
+def _coarse_bias_dev(device: str, r: int) -> torch.Tensor:
+    return torch.from_numpy(coarse_bias_table(r).copy()).to(device)
+
+
+def coarse_search(yds: torch.Tensor, refds: torch.Tensor,
+                  r: int = COARSE_R):
+    """Coarse grids for sizes 16, 32, 64.  CUDA tensors →
+    vvc_torch/csrc/me.cu `me_coarse`; CPU or `ops.plain()` → the twin."""
+    if ops.use_kernel(refds):
+        return _coarse_cuda(yds.contiguous(), refds.contiguous(), r)
+    return coarse_search_plain(yds, refds, r)
+
+
+# --------------------------------------------------------------------
+# integer refinement in the window
+# --------------------------------------------------------------------
+
+def win_centers(cy, cx, ys, xs, h: int, w: int, s: int):
+    """vvc/enc/me.py:156 `_win_centers`: clip the coarse centres so the
+    (s + 2·WIN_M)² window stays inside the padded plane (jnp.clip is
+    min(max(x, lo), hi)); returns (cy, cx, sy, sx), sy/sx the padded
+    origins."""
+    ws = s + 2 * WIN_M
+    cy = torch.minimum(torch.maximum(cy, WIN_M - (ys + PAD)),
+                       (h + PAD - ws) - ys + WIN_M)
+    cx = torch.minimum(torch.maximum(cx, WIN_M - (xs + PAD)),
+                       (w + PAD - ws) - xs + WIN_M)
+    return cy, cx, ys + PAD + cy - WIN_M, xs + PAD + cx - WIN_M
+
+
+def _gather(plane: torch.Tensor, oy, ox, n: int) -> torch.Tensor:
+    """[N, n, n] windows of `plane` at origins (oy, ox)."""
+    k = torch.arange(n, device=plane.device)
+    return plane[(oy[:, None] + k)[:, :, None], (ox[:, None] + k)[:, None, :]]
+
+
+def int_refine_plain(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, cy, cx,
+                     lam_m, s: int, h: int, w: int):
+    """Plain twin of vvc's `_win_centers` + `_gather_windows` +
+    `_int_refine` (vvc/enc/me.py:150-200): 81 SSE costs in ±R2 around the
+    clipped centre, raster order (dy outer), first minimum.  Returns
+    (iy, ix, cy, cx) int32 [N]: the integer-pel MV and the clipped
+    centre."""
+    hp, wp = refpad.shape
+    ws = s + 2 * WIN_M
+    cy, cx, sy, sx = win_centers(cy, cx, ys, xs, h, w, s)
+    # lax.dynamic_slice clamps its start; the clipped centre makes that a
+    # no-op
+    assert bool(((sy >= 0) & (sy <= hp - ws) & (sx >= 0)
+                 & (sx <= wp - ws)).all()), "window start out of bounds"
+    win = _gather(refpad, sy, sx, ws).to(torch.int32)
+    ob = ob.to(torch.int32)
+    lam_m = np.float32(lam_m)
+    costs = []
+    for dy in range(-R2, R2 + 1):
+        by = mv_bits(4 * (cy + dy))
+        for dx in range(-R2, R2 + 1):
+            t, l = dy + WIN_M, dx + WIN_M
+            sse = sse_f32_me(win[:, t:t + s, l:l + s] - ob)
+            costs.append(_fma_f32(lam_m, by + mv_bits(4 * (cx + dx)), sse))
+    k = torch.argmin(torch.stack(costs, dim=1), dim=1).to(torch.int32)
+    n2 = 2 * R2 + 1
+    return (cy + k // n2 - R2).to(torch.int32), \
+        (cx + k % n2 - R2).to(torch.int32), cy.to(torch.int32), \
+        cx.to(torch.int32)
+
+
+def _int_refine_cuda(refpad, ob, ys, xs, cy, cx, lam_m, s: int, h: int,
+                     w: int):
+    ops.check_cuda_i32("me_int", refpad, ob, ys, xs, cy, cx)
+    n = ob.shape[0]
+    if s not in (8, 16, 32, 64) or tuple(ob.shape[1:]) != (s, s):
+        raise ValueError(f"me_int: unsupported block {tuple(ob.shape)}")
+    dev = ob.device
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
+    if n == 0:
+        return tuple(outs)
+    mvb = _mv_bits_dev(str(dev))
+    fn = ops.lib("me_int").me_int_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(refpad.data_ptr(), ob.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+             cy.data_ptr(), cx.data_ptr(), mvb.data_ptr(),
+             refpad.shape[0], refpad.shape[1], float(np.float32(lam_m)),
+             n, s, h, w, *(o.data_ptr() for o in outs), ops.stream_ptr(ob))
+    ops.launched("me_int", err)
+    return tuple(outs)
+
+
+def int_refine(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, cy, cx,
+               lam_m, s: int, h: int, w: int):
+    """(iy, ix, cy, cx) int32 [N] — see int_refine_plain.  CUDA tensors →
+    vvc_torch/csrc/me.cu `me_int`; CPU or `ops.plain()` → the twin."""
+    if ops.use_kernel(ob):
+        return _int_refine_cuda(*(t.to(torch.int32).contiguous() for t in
+                                  (refpad, ob, ys, xs, cy, cx)),
+                                lam_m, s, h, w)
+    return int_refine_plain(refpad, ob, ys, xs, cy, cx, lam_m, s, h, w)
+
+
+# --------------------------------------------------------------------
+# quarter-pel refinement (normative 8-tap DCTIF, SATD cost)
+# --------------------------------------------------------------------
+
+def qpel_refine_plain(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, iy, ix,
+                      lam_m, s: int, bit_depth: int):
+    """Plain twin of vvc/enc/me.py:203 `_qpel_refine`: the 49 quarter-pel
+    offsets in ±3 (qy outer, qx inner) around the integer winner, 8-tap
+    DCTIF in int32 (horizontal pass unshifted, or <<6 at fx = 0; vertical
+    unshifted, or <<6 at fy = 0; then (acc + 2048) >> 12 and clip), cost
+    fma(√λ, bits(mvy) + bits(mvx), SATD), first minimum.  Returns
+    (mvy, mvx int32 [N], cost float32 [N], pred int32 [N, s, s])."""
+    mx = (1 << bit_depth) - 1
+    m2 = s + 2 * M2
+    filt = [[int(v) for v in row] for row in LUMA_FILTERS]
+    w2 = _gather(refpad, ys + PAD + iy - M2, xs + PAD + ix - M2, m2
+                 ).to(torch.int32)
+    ob = ob.to(torch.int32)
+    lam_m = np.float32(lam_m)
+    hor = {}
+    for qx in range(-3, 4):
+        ixo, fx = qx >> 2, qx & 3
+        if (ixo, fx) in hor:
+            continue
+        if fx == 0:
+            hor[(ixo, fx)] = w2[:, :, M2:M2 + s] << 6
+        else:
+            c0 = ixo + M2 - 3
+            acc = torch.zeros((w2.shape[0], m2, s), dtype=torch.int32,
+                              device=w2.device)
+            for k in range(8):
+                acc = acc + filt[fx][k] * w2[:, :, c0 + k:c0 + k + s]
+            hor[(ixo, fx)] = acc
+    best = None
+    for qy in range(-3, 4):
+        iyo, fy = qy >> 2, qy & 3
+        r0 = iyo + M2 - 3
+        for qx in range(-3, 4):
+            hb = hor[(qx >> 2, qx & 3)]
+            if fy == 0:
+                acc = hb[:, M2:M2 + s, :] << 6
+            else:
+                acc = torch.zeros_like(hb[:, :s, :])
+                for k in range(8):
+                    acc = acc + filt[fy][k] * hb[:, r0 + k:r0 + k + s, :]
+            pred = ((acc + 2048) >> 12).clamp(0, mx)
+            mvy, mvx = 4 * iy + qy, 4 * ix + qx
+            c = _fma_f32(lam_m, mv_bits(mvy) + mv_bits(mvx),
+                        satd_batch_plain(pred, ob).to(torch.float32))
+            if best is None:
+                best = [c, mvy, mvx, pred]
+            else:
+                m = c < best[0]
+                best = [torch.where(m, c, best[0]),
+                        torch.where(m, mvy, best[1]),
+                        torch.where(m, mvx, best[2]),
+                        torch.where(m[:, None, None], pred, best[3])]
+    return (best[1].to(torch.int32), best[2].to(torch.int32), best[0],
+            best[3].to(torch.int32))
+
+
+@lru_cache(maxsize=None)
+def _filters_dev(device: str) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(LUMA_FILTERS, dtype=np.int32)
+                            ).to(device)
+
+
+def _qpel_refine_cuda(refpad, ob, ys, xs, iy, ix, lam_m, s: int,
+                      bit_depth: int):
+    ops.check_cuda_i32("me_qpel", refpad, ob, ys, xs, iy, ix)
+    n = ob.shape[0]
+    if s not in (8, 16, 32, 64) or tuple(ob.shape[1:]) != (s, s):
+        raise ValueError(f"me_qpel: unsupported block {tuple(ob.shape)}")
+    dev = ob.device
+    mvy = torch.empty(n, dtype=torch.int32, device=dev)
+    mvx = torch.empty_like(mvy)
+    cost = torch.empty(n, dtype=torch.float32, device=dev)
+    pred = torch.empty((n, s, s), dtype=torch.int32, device=dev)
+    if n == 0:
+        return mvy, mvx, cost, pred
+    fn = ops.lib("me_qpel").me_qpel_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(refpad.data_ptr(), ob.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+             iy.data_ptr(), ix.data_ptr(), _filters_dev(str(dev)).data_ptr(),
+             _mv_bits_dev(str(dev)).data_ptr(), refpad.shape[1], n,
+             float(np.float32(lam_m)), s, (1 << bit_depth) - 1,
+             mvy.data_ptr(), mvx.data_ptr(), cost.data_ptr(), pred.data_ptr(),
+             ops.stream_ptr(ob))
+    ops.launched("me_qpel", err)
+    return mvy, mvx, cost, pred
+
+
+def qpel_refine(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, iy, ix,
+                lam_m, s: int, bit_depth: int):
+    """(mvy, mvx, cost, pred) — see qpel_refine_plain.  CUDA tensors →
+    vvc_torch/csrc/me.cu `me_qpel`; CPU or `ops.plain()` → the twin."""
+    if ops.use_kernel(ob):
+        return _qpel_refine_cuda(*(t.to(torch.int32).contiguous() for t in
+                                   (refpad, ob, ys, xs, iy, ix)),
+                                 lam_m, s, bit_depth)
+    return qpel_refine_plain(refpad, ob, ys, xs, iy, ix, lam_m, s, bit_depth)

@@ -359,14 +359,68 @@ def _alf_grid(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
     return torch.stack(feats), t, key, cls
 
 
+# vvc's B100 dot (F·m)ᵀt lowers, from this many grid points on, to
+# XLA-CPU's tiled row-major GEMV (below it is fused into a loop); the
+# GEMV's float32 order is reproduced (`_b100_gemv`)
+B100_GEMV_MIN_POINTS = 4096
+
+
+def _lane_tree(a: torch.Tensor, row_tail: bool) -> torch.Tensor:
+    """The GEMV's horizontal add of 8 lane sums (last axis): rows 0..7 of
+    a tile ((a0+a1)+(a2+a3))+((a4+a5)+(a6+a7)); rows 8..11 (the tail
+    tile) ((a0+a4)+(a2+a6))+((a1+a5)+(a3+a7))."""
+    if row_tail:
+        return (((a[..., 0] + a[..., 4]) + (a[..., 2] + a[..., 6]))
+                + ((a[..., 1] + a[..., 5]) + (a[..., 3] + a[..., 7])))
+    return (((a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3]))
+            + ((a[..., 4] + a[..., 5]) + (a[..., 6] + a[..., 7])))
+
+
+def _b100_gemv(F: torch.Tensor, t: torch.Tensor, key: torch.Tensor,
+               exact: torch.Tensor) -> torch.Tensor:
+    """B100 [100, 12] float32 bit-equal to vvc's on XLA-CPU, from the
+    exact int64 sums `exact`.  vvc's `Fw @ t` (Fw = F masked to the group)
+    is the tiled GEMV `row_major_gemv_F32_8_8_12_P` (read from its
+    optimised IR, jax 0.9.0, at 416×240 and 1080p): lane j of row k sums
+    the products of the points p ≡ j (mod 8) in increasing p from 0 (the
+    masked zeros change nothing; every product is exact), and the lanes
+    meet in `_lane_tree` (rows 0..7 and 8..11 differ).  P is a multiple of
+    16 (picture sides are multiples of 8).  Where Σ|F·t| of an entry stays
+    below 2^24 every partial sum is exact in any order, so the exact sum
+    is the answer; the others are summed in that order."""
+    assert t.numel() % 8 == 0, t.numel()
+    prod = F * t[None, :]                                   # [12, P] int64
+    absb = torch.zeros_like(exact)
+    absb.index_add_(0, key, prod.abs().T)
+    out = exact.to(torch.float32)
+    need = absb >= (1 << 24)
+    pos = torch.arange(t.numel(), device=t.device)
+    pf = prod.to(torch.float32)                   # exact: |F·t| < 2^24
+    for g in torch.nonzero(need.any(dim=1)).reshape(-1).tolist():
+        sel = pos[key == g]
+        lanes = [pf[:, sel[sel % 8 == j]] for j in range(8)]
+        n = max(x.shape[1] for x in lanes)
+        v = torch.zeros((12, 8, n), dtype=torch.float32, device=t.device)
+        for j, x in enumerate(lanes):
+            v[:, j, :x.shape[1]] = x
+        acc = torch.zeros((12, 8), dtype=torch.float32, device=t.device)
+        for i in range(n):
+            acc = acc + v[:, :, i]
+        b = torch.cat([_lane_tree(acc[:8], False), _lane_tree(acc[8:], True)])
+        out[g] = torch.where(need[g], b, out[g])
+    return out
+
+
 def alf_stats_plain(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
                     tr4: torch.Tensor, chunk: int = 1 << 16):
     """Plain twin of the `alf_stats` kernel: vvc/kernels/alf.py:330
     alf_stats_dev's sums taken exactly (int64 products summed in float64,
     exact: every partial sum is an integer below 2^53) and rounded once
-    to float32.  vvc's float32 dots and sums round along the way (its
-    order is XLA-CPU's Eigen contraction), so A100 and B100 differ from
-    vvc's in the last bits of some entries (ROADMAP §3).
+    to float32, except B100 from B100_GEMV_MIN_POINTS grid points on,
+    which takes vvc's float32 GEMV order (`_b100_gemv`).  vvc's A100 is an
+    Eigen contraction whose float32 order is not reproduced, so A100 (and
+    B100 on smaller grids) differs from vvc's in the last bits of some
+    entries (ROADMAP §3).
     → (A100 [100,12,12], B100 [100,12], sse0 [25], npx [25]) float32."""
     F, t, key, cls = _alf_grid(o, r, cls4, tr4)
     dev = o.device
@@ -380,10 +434,13 @@ def alf_stats_plain(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
     per = torch.zeros((25, 2), dtype=torch.float64, device=dev)
     per.index_add_(0, cls, torch.stack([t * t, torch.ones_like(t)],
                                        dim=1).to(torch.float64))
+    b100 = acc[:, 144:].to(torch.float32)
+    if t.numel() >= B100_GEMV_MIN_POINTS:
+        b100 = _b100_gemv(F, t, key, acc[:, 144:].to(torch.int64))
     acc = acc.to(torch.float32)
     per = per.to(torch.float32)
     return (acc[:, :144].reshape(N_GROUPS, N_PAIRS, N_PAIRS).contiguous(),
-            acc[:, 144:].contiguous(), per[:, 0].contiguous(),
+            b100.contiguous(), per[:, 0].contiguous(),
             per[:, 1].contiguous())
 
 
@@ -397,13 +454,20 @@ def _alf_stats_cuda(o, r, cls4, tr4):
     blocks = max(1, min(ALF_STATS_CTAS, -(-npts // 512)))
     partial = torch.empty((blocks, n), dtype=torch.int64, device=o.device)
     acc = torch.empty((n,), dtype=torch.int64, device=o.device)
+    gemv = npts >= B100_GEMV_MIN_POINTS
+    if gemv and npts % 8:
+        raise ValueError("alf_stats: the GEMV order needs a multiple of 8 "
+                         "grid points")
+    b100 = torch.empty((N_GROUPS, N_PAIRS), dtype=torch.float32,
+                       device=o.device)
     fn = ops.lib("alf_stats").alf_stats_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(o.data_ptr(), r.data_ptr(), cls4.data_ptr(), tr4.data_ptr(),
              h, w, cls4.shape[1], partial.data_ptr(), blocks, acc.data_ptr(),
-             ops.stream_ptr(o))
+             b100.data_ptr(), int(gemv), ops.stream_ptr(o))
     ops.launched("alf_stats", err)
     g = acc[:N_GROUPS * 90].reshape(N_GROUPS, 90).to(torch.float32)
     iu = torch.triu_indices(N_PAIRS, N_PAIRS, device=o.device)
@@ -412,8 +476,8 @@ def _alf_stats_cuda(o, r, cls4, tr4):
     a[:, iu[0], iu[1]] = g[:, :78]
     a[:, iu[1], iu[0]] = g[:, :78]
     per = acc[N_GROUPS * 90:].reshape(25, 2).to(torch.float32)
-    return (a, g[:, 78:].contiguous(), per[:, 0].contiguous(),
-            per[:, 1].contiguous())
+    return (a, b100 if gemv else g[:, 78:].contiguous(),
+            per[:, 0].contiguous(), per[:, 1].contiguous())
 
 
 def alf_stats_dev(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,

@@ -19,7 +19,9 @@ The 6-tap downsampled luma plane is computed vectorized once per call
 site; the C++ recon core mirrors the same per-sample formula bit-exactly.
 
 The numpy functions (`luma_ds_region`, `gather_model_points`,
-`derive_model`, `predict_cclm`) are the recon oracle's, per leaf.  The RD
+`derive_model`, `predict_cclm`) are the recon oracle's, per leaf;
+`luma_ds_plane` and `derive_models_batch` serve the host chroma decision
+of inter pictures (vvc/enc/encoder.py `_decide_chroma_modes`).  The RD
 search's device chroma decision uses `luma_ds_plane_dev` and
 `derive_models_batch_dev` (ports of vvc/kernels/cclm.py:173,187): on a
 CUDA tensor they launch the kernels of vvc_torch/csrc/cclm.cu, on a CPU
@@ -35,6 +37,20 @@ import torch
 from vvc_torch import ops
 
 CCLM_SHIFT = 13
+
+
+def luma_ds_plane(luma: np.ndarray) -> np.ndarray:
+    """[H,W] luma → [H/2, W/2] 6-tap {1,2,1;1,2,1}/8 downsample,
+    edge-clamped columns."""
+    h, w = luma.shape
+    l = luma.astype(np.int32)
+    xm = np.clip(np.arange(0, w, 2) - 1, 0, w - 1)
+    x0 = np.arange(0, w, 2)
+    xp = np.clip(np.arange(0, w, 2) + 1, 0, w - 1)
+    r0 = l[0::2]
+    r1 = l[1::2] if h % 2 == 0 else np.vstack([l[1::2], l[-1:]])
+    return ((r0[:, xm] + 2 * r0[:, x0] + r0[:, xp]
+             + r1[:, xm] + 2 * r1[:, x0] + r1[:, xp] + 4) >> 3)
 
 
 def luma_ds_region(luma: np.ndarray, cx0: int, cy0: int, cw: int,
@@ -116,6 +132,56 @@ def derive_model(pts, bit_depth: int):
     alpha = max(-(1 << 17), min((1 << 17) - 1, alpha))
     beta = cmin - ((alpha * lmin) >> CCLM_SHIFT)
     return alpha, beta
+
+
+def derive_models_batch(ds: np.ndarray, chroma: np.ndarray,
+                        xs: np.ndarray, ys: np.ndarray, cs: int,
+                        bit_depth: int, variant: int = 1):
+    """Vectorized (α, β) for N same-size chroma blocks, assuming all
+    inside-frame neighbours available (the encoder's orig-domain decision
+    approximation — reconstruction re-derives exactly per leaf).
+
+    Returns int64 [N, 2] (alpha, beta)."""
+    n = len(xs)
+    ch, cw = chroma.shape
+    top_ok = (ys > 0) & (variant != 2)
+    left_ok = (xs > 0) & (variant != 3)
+    # 4 sample points per block: both → 2 top + 2 left; top-only → 4 top;
+    # left-only → 4 left (mirrors gather_model_points)
+    k = np.arange(4)
+    x_top = np.where(top_ok[:, None] & left_ok[:, None],
+                     xs[:, None] + np.array([cs // 4, 3 * cs // 4,
+                                             cs // 4, 3 * cs // 4]),
+                     xs[:, None] + k[None, :] * cs // 4)
+    y_left = np.where(top_ok[:, None] & left_ok[:, None],
+                      ys[:, None] + np.array([0, 0, cs // 4, 3 * cs // 4]),
+                      ys[:, None] + k[None, :] * cs // 4)
+    # per point: from top row (y-1, x_top) or left col (x-1, y_left)
+    use_top = np.where((top_ok & left_ok)[:, None],
+                       np.array([1, 1, 0, 0], dtype=bool)[None, :],
+                       np.broadcast_to(top_ok[:, None], (n, 4)))
+    px = np.where(use_top, np.minimum(x_top, cw - 1),
+                  np.maximum(xs - 1, 0)[:, None])
+    py = np.where(use_top, np.maximum(ys - 1, 0)[:, None],
+                  np.minimum(y_left, ch - 1))
+    lum = ds[py, px].astype(np.int64)
+    chr_ = chroma[py, px].astype(np.int64)
+    order = np.argsort(lum, axis=1, kind="stable")
+    lum = np.take_along_axis(lum, order, axis=1)
+    chr_ = np.take_along_axis(chr_, order, axis=1)
+    lmin = (lum[:, 0] + lum[:, 1] + 1) >> 1
+    lmax = (lum[:, 2] + lum[:, 3] + 1) >> 1
+    cmin = (chr_[:, 0] + chr_[:, 1] + 1) >> 1
+    cmax = (chr_[:, 2] + chr_[:, 3] + 1) >> 1
+    den = lmax - lmin
+    alpha = np.where(den != 0,
+                     ((cmax - cmin) << CCLM_SHIFT) // np.maximum(den, 1), 0)
+    alpha = np.clip(alpha, -(1 << 17), (1 << 17) - 1)
+    beta = np.where(den != 0, cmin - ((alpha * lmin) >> CCLM_SHIFT), cmin)
+    none_ok = ~top_ok & ~left_ok
+    alpha = np.where(none_ok, 0, alpha)
+    beta = np.where(none_ok, 1 << (bit_depth - 1), beta)
+    return np.stack([alpha, beta], axis=1)
 
 
 def luma_ds_plane_plain(luma: torch.Tensor) -> torch.Tensor:

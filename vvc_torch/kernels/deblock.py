@@ -73,6 +73,33 @@ def _edge_bs(intra, cbf, mv, ref, p_u, q_u):
     return bs
 
 
+def _bs_maps(leaves, w4: int, h4: int):
+    """Per-4×4 boundary-strength inputs (reference: the MotionBuf +
+    cbf/pred maps xGetBoundaryStrengthSingle consults): intra, cbf_y,
+    per-list mv (qpel) and ref idx (-1 unused)."""
+    from vvc_torch.kernels.affine import affine_mv_grid
+    intra = np.ones((h4, w4), dtype=bool)
+    cbf = np.zeros((h4, w4), dtype=bool)
+    mv = np.zeros((h4, w4, 2, 2), dtype=np.int32)
+    ref = np.full((h4, w4, 2), -1, dtype=np.int8)
+    for l in leaves:
+        sl = (slice(l.y0 >> 2, (l.y0 + l.h) >> 2),
+              slice(l.x0 >> 2, (l.x0 + l.w) >> 2))
+        intra[sl] = l.pred == 0
+        cbf[sl] = bool(l.cbf_y)
+        if l.pred == 1:
+            for li in range(2):
+                if (l.inter_dir >> li) & 1:
+                    if l.affine:
+                        mv[sl + (li,)] = affine_mv_grid(l.w, l.h,
+                                                        l.cpmv[li],
+                                                        l.affine)
+                    else:
+                        mv[sl + (li,)] = np.asarray(l.mv[li])
+                    ref[sl + (li,)] = l.ref_idx[li]
+    return intra, cbf, mv, ref
+
+
 def _filter_luma_edges_v(plane, ev, grid, beta, tc_tab, maxv, bs_ctx=None):
     """Filter all vertical luma edges in place — batched over ALL edge
     columns at once (at grid 8 the ±4-tap neighbourhoods of adjacent edges
@@ -203,14 +230,14 @@ def deblock_frame(recon_planes, leaves, qp: int, bit_depth: int = 8,
     tc2 = int(TC_TABLE[min(qpi + 2, 65)]) << (bit_depth - 8)  # BS=2 tc
     tc_tab = (qpi, bit_depth)
 
-    # all-intra: BS=2 on every edge (the inter BS maps of vvc's
-    # _bs_maps arrive with the inter slice)
-    if any(l.pred == 1 for l in leaves):
-        raise NotImplementedError(
-            "vvc_torch: deblocking of inter leaves arrives with the inter "
-            "slice")
+    # BS inputs: skip the map build on all-intra frames (BS=2 everywhere)
+    any_inter = any(l.pred == 1 for l in leaves)
     bs_ctx = None
     intra_map = None
+    if any_inter:
+        intra_map, cbf_m, mv_m, ref_m = _bs_maps(leaves, (w + 3) >> 2,
+                                                 (h + 3) >> 2)
+        bs_ctx = (intra_map, cbf_m, mv_m, ref_m)
 
     ev, eh = _edge_maps(leaves, h, w, 8, 0)
     for bx in tile_x_bounds:

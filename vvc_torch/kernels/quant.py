@@ -86,7 +86,8 @@ def dequant_np(level: np.ndarray, qp: int, bit_depth: int = 8) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Batched torch versions ([N, H, W], all blocks same size & qp for one call)
 # — ports of vvc/kernels/quant.py:87,106, int32 arithmetic like the
-# reference's (arithmetic shifts, the _DEQ_GUARD clamp, intra offset 171).
+# reference's (arithmetic shifts, the _DEQ_GUARD clamp, dead-zone offset
+# 171 intra, 85 inter).
 # ---------------------------------------------------------------------------
 
 
@@ -217,13 +218,13 @@ def xla_block_sum(x: torch.Tensor, row_lanes: bool = False,
 
 
 def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
-                     row_lanes: bool = False):
+                     row_lanes: bool = False, intra: bool = True):
     """Plain twin of the `quant_rate` kernel: the composition of
-    quant_batch (intra), level_bits and dequant_batch, with the rate summed
-    per block in XLA's order.  → (rate [N] f32, dequantised [N,S,S] i32);
-    the levels are not returned, as the kernel does not write them."""
+    quant_batch, level_bits and dequant_batch, with the rate summed per
+    block in XLA's order.  → (rate [N] f32, dequantised [N,S,S] i32); the
+    levels are not returned, as the kernel does not write them."""
     from vvc_torch.cabac.rates import level_bits
-    lev = quant_batch(coeff, qp, bit_depth, intra=True)
+    lev = quant_batch(coeff, qp, bit_depth, intra=intra)
     rate = xla_block_sum(level_bits(lev.abs()), row_lanes)
     return rate, dequant_batch(lev, qp, bit_depth)
 
@@ -237,7 +238,7 @@ def _rate_tables(device: str):
 
 
 def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
-                     row_lanes: bool):
+                     row_lanes: bool, intra: bool):
     from vvc_torch.cabac.rates import log_scale_f32
     ops.check_cuda_i32("quant_rate", coeff)
     n, h, w = coeff.shape
@@ -245,7 +246,7 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
         raise ValueError(f"quant_rate: unsupported block {h}x{w}")
     if row_lanes and w != 8:
         raise ValueError("quant_rate: row_lanes is an 8x8 order")
-    scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, True)
+    scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, intra)
     dscale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
     if shift <= 0:
         raise ValueError("quant_rate: dequant shift must be positive")
@@ -268,15 +269,17 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
 
 
 def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
-               row_lanes: bool = False):
+               row_lanes: bool = False, intra: bool = True):
     """[N,S,S] int32 coefficients → (rate [N] f32, dequantised [N,S,S]
     i32).  One pass of vvc's quant_batch,
     level_bits_jnp + sum and dequant_batch (vvc/kernels/quant.py:87,106,
     vvc/cabac/rates.py:41).  row_lanes (S = 8 only): sum the rate in the
     order XLA gives the 8×8 reduction of the LFNST stage (each row in its
-    own lane, then the lane tree) instead of the stages-A/B order.  CUDA
-    tensor → vvc_torch/csrc/quant_rate.cu; CPU tensor or `ops.plain()` →
+    own lane, then the lane tree) instead of the stages-A/B order.  intra
+    picks the dead zone: offset 171/512 (intra search) or 85/512 (the
+    inter search's `_inter_rd_dev`).  CUDA tensor →
+    vvc_torch/csrc/quant_rate.cu; CPU tensor or `ops.plain()` →
     quant_rate_plain."""
     if ops.use_kernel(coeff):
-        return _quant_rate_cuda(coeff, qp, bit_depth, row_lanes)
-    return quant_rate_plain(coeff, qp, bit_depth, row_lanes)
+        return _quant_rate_cuda(coeff, qp, bit_depth, row_lanes, intra)
+    return quant_rate_plain(coeff, qp, bit_depth, row_lanes, intra)

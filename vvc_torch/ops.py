@@ -49,6 +49,10 @@ SOURCES = {
     "intra_pred_one": "intra_pred.cu",
     "sao_stats": "sao_stats.cu",
     "alf_stats": "alf_stats.cu",
+    "me_prep": "me.cu",
+    "me_coarse": "me.cu",
+    "me_int": "me.cu",
+    "me_qpel": "me.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

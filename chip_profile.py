@@ -2,7 +2,7 @@
 """Where the port's main path spends its time on one NVIDIA GPU.
 
     python3 chip_profile.py [--trace profile_trace.json]
-                            [--lossy [3|2b|2a] | --inter]
+                            [--lossy [3|2b|2a] | --inter | --mtt]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -36,6 +36,11 @@ MIP, LFNST, CCLM and deblocking on, 2a leaves LFNST and CCLM off.
 motion clip (vvc_torch.io.synth.motion_clip) with the default tool set,
 twice: profiled (the device's busy time and idle share as above) and
 unprofiled.
+
+--mtt is the slice-2c main path of `chip_smoke.py` [14]: All-Intra
+`encode_sequence` of the two 1080p frames with the default tool set and
+mtt, isp, mrl and dep_quant on, twice: profiled (busy time and idle share
+as above) and unprofiled.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -80,6 +85,9 @@ def main() -> int:
                          "encode_frame with slice 2b's or 2a's tools")
     ap.add_argument("--inter", action="store_true",
                     help="profile the Random Access path (9 frames, GOP 8)")
+    ap.add_argument("--mtt", action="store_true",
+                    help="profile the slice-2c path (MTT, ISP, MRL, "
+                         "dependent quantization; 2 frames)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -99,10 +107,13 @@ def main() -> int:
     ops.build()
     packer.lib()
     frames = [synth_frame(W, H, t) for t in range(2)]
+    tools_2c = dict(mtt=True, isp=True, mrl=True, dep_quant=True)
     if args.inter:
         encode_sequence(motion_clip(5, 416, 240), qp=32, mode="ra",
                         gop_size=4)
         frames = motion_clip(9, W, H)
+    if args.mtt:
+        encode_sequence([synth_frame(416, 240, 0)], qp=32, **tools_2c)
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
     if args.lossy == "2b":
         lossy.update(lfnst=True, cclm=True)
@@ -112,11 +123,13 @@ def main() -> int:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
         enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
-    elif not args.inter:
+    elif not (args.inter or args.mtt):
         encode_sequence([synth_frame(416, 240, 0)], qp=32,
                         lossless=lossless)
-    lossless = lossless and not args.inter
+    lossless = lossless and not (args.inter or args.mtt)
+    one_run = per_frame or args.inter or args.mtt
     path = ("inter RA GOP8" if args.inter else
+            "AI mtt+isp+mrl+dep_quant" if args.mtt else
             f"lossy {args.lossy}" if args.lossy else "lossless")
 
     def run(name, calls):
@@ -129,6 +142,8 @@ def main() -> int:
                     enc.encode_frame(f, poc)
             elif args.inter:
                 encode_sequence(fs, qp=32, mode="ra", gop_size=8)
+            elif args.mtt:
+                encode_sequence(fs, qp=32, **tools_2c)
             else:
                 encode_sequence(fs, qp=32, lossless=lossless)
         torch.cuda.synchronize()
@@ -157,8 +172,9 @@ def main() -> int:
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     print(top, flush=True)
-    if per_frame or args.inter:
-        print(json.dumps(run("serial", [frames])), flush=True)
+    if one_run:
+        print(json.dumps(run("serial" if not args.mtt else "pooled",
+                             [frames])), flush=True)
         return 0
     print(json.dumps(run("serial", [[f] for f in frames])), flush=True)
     print(json.dumps(run("pooled", [frames])), flush=True)

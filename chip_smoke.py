@@ -13,16 +13,20 @@ frames), lossy `encode_sequence` with its default tool set, SAO, ALF
 and CC-ALF included (slice 3, two frames), and Random Access
 `encode_sequence(mode="ra", gop_size=8)` with the same defaults on a
 clip in global sub-pel motion (slice 4a, nine frames: I, P and seven B
-pictures) — and checks what comes out:
+pictures), and lossy `encode_sequence` with the MTT lattice, ISP, MRL and
+dependent quantization on top of the defaults (slice 2c, two frames) —
+and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the eighteen kernels against its plain version on the card
-     (exact equality; the quant_rate kernel's float rates, the filter
+  3. each of the twenty-one kernels against its plain version on the
+     card (exact equality; the quant_rate kernel's float rates, the filter
      statistics and the motion search's costs bit for bit), at the main
      paths' shapes, with CUDA-event times per 1080p frame (the SAO and
      ALF statistics on the recon of a 2b picture, after [7]; the four
-     motion-search kernels per 1080p B picture with 2 refs per list);
+     motion-search kernels per 1080p B picture with 2 refs per list; the
+     three rect kernels, and the transforms and quant_rate at the rect
+     and ISP shapes, per 1080p frame of the slice-2c path);
   4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
      kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
@@ -41,13 +45,22 @@ pictures) — and checks what comes out:
      to the plain path's;
   11. bench_ai's configuration (8 × 416×240, QP 32, the defaults), single
      tile and 2 tile columns: kernel streams == plain streams, frames/s;
-  12. the slice-4a main path (9 frames 1080p RA, GOP 8): each of the
-     eighteen kernels launched (these counts fill the kernel table), the
+  12. the slice-4a main path (9 frames 1080p RA, GOP 8): each kernel but
+     the three rect ones launched (these counts fill the kernel table for
+     the other eighteen), the
      stream starts with SPS and PPS, the NAL and slice type of every
      picture, PSNR and bytes in range, the share of inter leaves and the
      histogram of their inter_dir, frames/s and the host phases;
   13. at 416×240 on the motion clip, the kernel path's streams byte-equal
-     to the plain path's for LDP (4 frames), LDB (4) and RA GOP 8 (9).
+     to the plain path's for LDP (4 frames), LDB (4) and RA GOP 8 (9);
+  14. the slice-2c main path (2 frames 1080p, mtt, isp, mrl, dep_quant):
+     every kernel but the motion search's launched (these counts fill the
+     table for the three rect kernels), NAL types, PSNR and bytes in
+     range, the leaves by kind (rect, TT mid, ISP, MRL, each present) and
+     by shape, the search vector == the plain path's, frames/s, the
+     search's device ms and the host phases;
+  15. at 416×240 (2 frames), the slice-2c kernel streams byte-equal to
+     the plain path's, single tile and 2 tile columns.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -91,6 +104,17 @@ LOSSLESS_KERNELS = ("ref_lines", "intra_pred_all", "satd")
 # slice 3 adds the filter statistics: SAO per component, ALF once
 SLICE3_LAUNCHES = dict(LOSSY_2B_LAUNCHES, sao_stats=3, alf_stats=1)
 ME_KERNELS = ("me_prep", "me_coarse", "me_int", "me_qpel")
+# slice 2c: the MTT lattice (vvc_torch.model.partition.shape_lattice(64,
+# True)), its rectangles, the rect TT mid planes ((desc, (w, h))) and the
+# three kernels only the MTT + ISP path launches
+MTT_SHAPES = ((64, 64), (64, 32), (32, 64), (64, 16), (32, 32), (16, 64),
+              (32, 16), (16, 32), (32, 8), (16, 16), (8, 32), (16, 8),
+              (8, 16), (8, 8))
+MTT_RECT = tuple(s for s in MTT_SHAPES if s[0] != s[1])
+MID_RECT = ((("TH", 32), (32, 16)), (("TV", 32), (16, 32)),
+            (("TV", 8), (16, 8)), (("TH", 8), (8, 16)))
+RECT_KERNELS = ("ref_lines_rect", "intra_pred_all_rect",
+                "intra_pred_one_rect")
 
 
 def check(cond, msg: str) -> None:
@@ -119,18 +143,21 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def ref_lines_read_bytes(h: int, w: int, xs, ys, size: int,
-                         sector: int = 32) -> int:
-    """Bytes of the int32 plane that the reference lines of blocks (xs, ys)
-    must read, counted in the card's 32-B sectors: the distinct sectors
-    holding row y0-1 (2S+1 samples, where y0 > 0) and column x0-1 (2S
-    samples, where x0 > 0) of each block, frame-edge clamps applied."""
+def ref_lines_read_bytes(h: int, w: int, xs, ys, bw: int,
+                         bh: int | None = None, sector: int = 32) -> int:
+    """Bytes of the int32 plane that the reference lines of BW×BH blocks
+    (xs, ys) must read, counted in the card's 32-B sectors: the distinct
+    sectors holding row y0-1 (2·BW+1 samples, where y0 > 0) and column
+    x0-1 (2·BH samples, where x0 > 0) of each block, frame-edge clamps
+    applied.  BH defaults to BW (squares)."""
+    bh = bw if bh is None else bh
     xs, ys = xs.long(), ys.long()
-    k = torch.arange(2 * size, device=xs.device)
+    kh = torch.arange(2 * bh, device=xs.device)
+    kw = torch.arange(2 * bw, device=xs.device)
     lx = (xs - 1).clamp(0, w - 1)
     ty = (ys - 1).clamp(0, h - 1)
-    left = (ys[:, None] + k).clamp(0, h - 1) * w + lx[:, None]
-    top = ty[:, None] * w + (xs[:, None] + k).clamp(0, w - 1)
+    left = (ys[:, None] + kh).clamp(0, h - 1) * w + lx[:, None]
+    top = ty[:, None] * w + (xs[:, None] + kw).clamp(0, w - 1)
     idx = torch.cat([left[xs > 0].reshape(-1), top[ys > 0].reshape(-1),
                      (ty * w + lx)[ys > 0]])
     return int(torch.unique(idx * 4 // sector).numel()) * sector
@@ -147,6 +174,46 @@ def cclm_models_bytes(cclm, xs, ys, cs: int, ch: int, cw: int,
     idx = (py * cw + px)[top_ok | left_ok].reshape(-1)
     sectors = int(torch.unique(idx * 4 // sector).numel())
     return 2 * sectors * sector + 16 * xs.shape[0]
+
+
+def grid_xy_rect(bw: int, bh: int, w: int, h: int, dev):
+    """Positions of the aligned BW×BH grid of a W×H frame (row-major)."""
+    ny, nx = h // bh, w // bw
+    ys = (torch.arange(ny, dtype=torch.int32, device=dev) * bh
+          ).repeat_interleave(nx)
+    xs = (torch.arange(nx, dtype=torch.int32, device=dev) * bw).repeat(ny)
+    return xs, ys
+
+
+def mid_xy(desc, w: int, h: int, dev):
+    """Positions of a TT mid plane's blocks: ('TH', bw) → (bw, 16) at
+    y = 8 + 32·r; ('TV', bh) → (16, bh) at x = 8 + 32·k."""
+    kind, s = desc
+    if kind == "TH":
+        xs, ys = grid_xy_rect(s, 32, w, h, dev)
+        return xs, ys + 8
+    xs, ys = grid_xy_rect(32, s, w, h, dev)
+    return xs + 8, ys
+
+
+def isp_launches(w: int, h: int):
+    """The ISP stage's launches per W×H frame: for every lattice shape
+    with both sides 8..32, each direction and each sub-TU, one launch on
+    [N, sh, sw] (N blocks of the shape) with the sub-TU's implicit
+    transform pair → [(sw, sh, N, tr_h, tr_v, square, count)], launches
+    of one shape, direction and size merged into a count."""
+    from vvc_torch.kernels.isp import isp_partitions, isp_tr_types
+    runs = []
+    for pw, ph in MTT_SHAPES:
+        if not (8 <= pw <= 32 and 8 <= ph <= 32):
+            continue
+        n = (h // ph) * (w // pw)
+        for d in (1, 2):
+            parts = isp_partitions(pw, ph, d)
+            sw, sh = parts[0][2], parts[0][3]
+            th, tv = isp_tr_types(sw, sh)
+            runs.append((sw, sh, n, th, tv, sw == sh, len(parts)))
+    return runs
 
 
 def grid_xy(size: int, w: int, h: int, dev):
@@ -316,8 +383,8 @@ def main() -> int:
         matmuls with the same shifts (exact: every value < 2^53)."""
         x = x.to(torch.float64)
         if fwd:
-            s1, s2 = int(np.log2(x.shape[-1])) + bd - 9, int(np.log2(
-                x.shape[-1])) + 6
+            s1 = int(np.log2(x.shape[-1])) + bd - 9
+            s2 = int(np.log2(x.shape[-2])) + 6
             t = torch.floor((x @ th.T + 2.0 ** (s1 - 1)) / 2.0 ** s1)
             return torch.floor((tv @ t + 2.0 ** (s2 - 1)) / 2.0 ** s2
                                ).clamp(-32768, 32767)
@@ -326,35 +393,64 @@ def main() -> int:
         return torch.floor((t @ th + 2.0 ** (s2 - 1)) / 2.0 ** s2
                            ).clamp(-32768, 32767)
 
-    def time_transform(fwd, x, want, th, tv, bd):
+    def time_transform(fwd, x, want, th, tv, bd, bucket=None, mult=1):
         """Kernel, plain and float64-yardstick times of one transform
-        launch on x [M,S,S]; the yardstick checked against `want`."""
+        launch on x [M,H,W] (counted `mult` times); the yardstick checked
+        against `want`.  bucket: the stats dict to add to (the rect
+        columns of kernel 4), default the kernel's own."""
         name = "transform_fwd" if fwd else "transform_inv"
+        st = (bucket or stats)[name]
         fn = (transform.fwd_transform_batch if fwd
               else transform.inv_transform_batch)
-        m, s = x.shape[0], x.shape[-1]
+        m, h, w = x.shape
         f = lambda: fn(x, bd, th, tv)
         k_ms = cuda_ms(f)
         with ops.plain():
             p_ms = cuda_ms(f, iters=3, warmup=1)
-        add_time(name, k_ms, p_ms, 2 * m * s * s * 4 + 2 * s * s * 4,
-                 m * s * s * 2 * s * 2)
-        thm = transform._matrix(th, s, str(dev)).to(torch.float64)
-        tvm = transform._matrix(tv, s, str(dev)).to(torch.float64)
+        st["ms"] += mult * k_ms
+        st["plain_ms"] += mult * p_ms
+        st["bytes"] += mult * (2 * m * h * w * 4 + (w * w + h * h) * 4)
+        st["ops"] += mult * m * h * w * (w + h) * 2
+        thm = transform._matrix(th, w, str(dev)).to(torch.float64)
+        tvm = transform._matrix(tv, h, str(dev)).to(torch.float64)
         lib = lambda: f64_sandwich(fwd, x, thm, tvm, bd)
         compare(name, lib().to(torch.int32), want)
-        stats[name]["library_ms"] = (stats[name]["library_ms"] or 0.0
-                                     ) + cuda_ms(lib, iters=3, warmup=1)
+        st["library_ms"] = (st["library_ms"] or 0.0) + mult * cuda_ms(
+            lib, iters=3, warmup=1)
 
-    def time_quant(c, bd, row_lanes=False):
-        """Kernel and plain times of one quant_rate launch on c [M,S,S]."""
-        m, s = c.shape[0], c.shape[-1]
+    def time_quant(c, bd, row_lanes=False, bucket=None, mult=1):
+        """Kernel and plain times of one quant_rate launch on c [M,H,W]."""
+        m, h, w = c.shape
+        st = (bucket or stats)["quant_rate"]
         f = lambda: quant.quant_rate(c, 32, bd, row_lanes)
         k_ms = cuda_ms(f)
         with ops.plain():
             p_ms = cuda_ms(f, iters=2, warmup=1)
-        add_time("quant_rate", k_ms, p_ms,
-                 2 * m * s * s * 4 + m * 4 + 32768 * 4 + 40, 16 * m * s * s)
+        st["ms"] += mult * k_ms
+        st["plain_ms"] += mult * p_ms
+        st["bytes"] += mult * (2 * m * h * w * 4 + m * 4 + 32768 * 4 + 40)
+        st["ops"] += mult * 16 * m * h * w
+
+    def kernel_rect_chain(x, th, tv, bd, time_it, bucket, mult):
+        """transform_fwd → quant_rate → transform_inv on x [M,H,W] against
+        the plain versions (the rate bit for bit), timed into `bucket`."""
+        ck = transform.fwd_transform_batch(x, bd, th, tv)
+        with ops.plain():
+            cp = transform.fwd_transform_batch(x, bd, th, tv)
+        compare("transform_fwd", ck, cp)
+        rk, dk = quant.quant_rate(ck, 32, bd)
+        with ops.plain():
+            rp, dp = quant.quant_rate(ck, 32, bd)
+        compare("quant_rate", dk, dp)
+        compare("quant_rate", rk.view(torch.int32), rp.view(torch.int32))
+        ik = transform.inv_transform_batch(dk, bd, th, tv)
+        with ops.plain():
+            ip = transform.inv_transform_batch(dk, bd, th, tv)
+        compare("transform_inv", ik, ip)
+        if time_it:
+            time_transform(True, x, ck, th, tv, bd, bucket, mult)
+            time_transform(False, dk, ik, th, tv, bd, bucket, mult)
+            time_quant(ck, bd, False, bucket, mult)
 
     for bd in (8, 10):
         for s in SIZES:
@@ -721,6 +817,140 @@ def main() -> int:
             if ps == 16 and s == 16:
                 parent_ob, parent_ys, parent_xs = ob, ys_, xs_
         del planes, refpad, refds, preps
+    # the slice-2c kernels at the 1080p shapes of the MTT + ISP main path,
+    # per frame: the reference lines and 67 modes of the ten rect lattice
+    # shapes and the four rect TT mid planes, stage A (DCT2 on the top-3,
+    # [3N,H,W]) and stage B (4 MTS pairs, [N,H,W], sides 8..32) there; and
+    # the ISP stage of every shape with sides 8..32 — per direction and
+    # sub-TU: ref lines, one-mode prediction, transform, quant_rate and
+    # inverse at [N,sh,sw] with the implicit pair.  Exact against the plain
+    # versions at 8 and 10 bit (random planes and lines, random modes);
+    # times at 8 bit, each distinct launch timed once and counted as often
+    # as the path launches it.
+    rect = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+                "library_ms": None}
+            for k in ("transform_fwd", "transform_inv", "quant_rate")}
+    grids = [((w, h), grid_xy_rect(w, h, W_HD, H_HD, dev))
+             for w, h in MTT_RECT]
+    grids += [(wh, mid_xy(desc, W_HD, H_HD, dev))
+              for desc, wh in MID_RECT]
+    isp_runs = isp_launches(W_HD, H_HD)
+    for bd in (8, 10):
+        plane = torch.from_numpy(rng.integers(
+            0, 1 << bd, size=(H_HD, W_HD)).astype(np.int32)).to(dev)
+        rx = torch.from_numpy(rng.integers(0, W_HD, 4096).astype(
+            np.int32)).to(dev)
+        ry = torch.from_numpy(rng.integers(0, H_HD, 4096).astype(
+            np.int32)).to(dev)
+        rx[:64] = 0
+        ry[32:96] = 0
+        time_it = bd == 8
+        for (w, h), (xs, ys) in grids:
+            n = xs.shape[0]
+            for px, py in ((xs, ys), (rx, ry)):
+                got = rdo.build_ref_lines_device_rect(plane, px, py, w, h, bd)
+                with ops.plain():
+                    want = rdo.build_ref_lines_device_rect(plane, px, py, w,
+                                                           h, bd)
+                compare("ref_lines_rect", got, want)
+            refs = torch.from_numpy(rng.integers(
+                0, 1 << bd, size=(n, 2 * h + 2 * w + 3)).astype(
+                    np.int32)).to(dev)
+            refs[:64] = refs[:64, :1]
+            pk = intra.predict_all_modes_batch_rect(refs, w, h, bd)
+            with ops.plain():
+                pp = intra.predict_all_modes_batch_rect(refs, w, h, bd)
+            compare("intra_pred_all_rect", pk, pp)
+            del pp
+            if time_it:
+                f_ref = lambda: rdo.build_ref_lines_device_rect(
+                    plane, xs, ys, w, h, bd)
+                k_ms = cuda_ms(f_ref)
+                with ops.plain():
+                    p_ms = cuda_ms(f_ref)
+                add_time("ref_lines_rect", k_ms, p_ms,
+                         ref_lines_read_bytes(H_HD, W_HD, xs, ys, w, h)
+                         + n * 8 + n * (2 * h + 2 * w + 3) * 4,
+                         10 * n * (2 * h + 2 * w + 3))
+                f_int = lambda: intra.predict_all_modes_batch_rect(
+                    refs, w, h, bd)
+                k_ms = cuda_ms(f_int)
+                with ops.plain():
+                    p_ms = cuda_ms(f_int, iters=2, warmup=1)
+                table_bytes = 49 * (4 * w * h * 2 * 2 + w * h * 2 * 2 + 2) * 4
+                add_time("intra_pred_all_rect", k_ms, p_ms,
+                         n * (2 * h + 2 * w + 3) * 4 + table_bytes
+                         + n * 67 * w * h * 4, 16 * n * 67 * w * h)
+            del pk, refs
+            # stages A and B of the rect shape
+            lim = 1 << bd
+            resi_a = torch.from_numpy(rng.integers(
+                -lim + 1, lim, size=(3 * n, h, w)).astype(np.int32) >> 2
+                ).to(dev)
+            mts_ok = 8 <= w <= 32 and 8 <= h <= 32
+            passes = [(0, resi_a)] + ([(mi, resi_a[:n]) for mi in
+                                       range(1, 5)] if mts_ok else [])
+            for mi, x in passes:
+                th, tv = transform.MTS_TR[mi]
+                kernel_rect_chain(x, th, tv, bd, time_it, rect, 1)
+            del resi_a, passes
+        for (sw, sh, n, th, tv, square, mult) in isp_runs:
+            lim = 1 << bd
+            xs = torch.from_numpy(rng.integers(0, W_HD - sw, n).astype(
+                np.int32)).to(dev)
+            ys = torch.from_numpy(rng.integers(0, H_HD - sh, n).astype(
+                np.int32)).to(dev)
+            modes = torch.from_numpy(rng.integers(0, 67, n).astype(
+                np.int32)).to(dev)
+            if not square:
+                got = rdo.build_ref_lines_device_rect(plane, xs, ys, sw, sh,
+                                                      bd)
+                with ops.plain():
+                    want = rdo.build_ref_lines_device_rect(plane, xs, ys, sw,
+                                                           sh, bd)
+                compare("ref_lines_rect", got, want)
+                pk = intra.predict_modes_batch_rect(got, modes, sw, sh, bd)
+                with ops.plain():
+                    pp = intra.predict_modes_batch_rect(got, modes, sw, sh,
+                                                        bd)
+                compare("intra_pred_one_rect", pk, pp)
+                if time_it:
+                    f_ref = lambda: rdo.build_ref_lines_device_rect(
+                        plane, xs, ys, sw, sh, bd)
+                    k_ms = cuda_ms(f_ref)
+                    with ops.plain():
+                        p_ms = cuda_ms(f_ref)
+                    add_time("ref_lines_rect", mult * k_ms, mult * p_ms,
+                             mult * (ref_lines_read_bytes(
+                                 H_HD, W_HD, xs, ys, sw, sh) + n * 8
+                                 + n * (2 * sh + 2 * sw + 3) * 4),
+                             mult * 10 * n * (2 * sh + 2 * sw + 3))
+                    f_one = lambda: intra.predict_modes_batch_rect(
+                        got, modes, sw, sh, bd)
+                    k_ms = cuda_ms(f_one)
+                    with ops.plain():
+                        p_ms = cuda_ms(f_one, iters=3, warmup=1)
+                    table_bytes = 49 * (4 * sw * sh * 2 * 2
+                                        + sw * sh * 2 * 2 + 2) * 4
+                    add_time("intra_pred_one_rect", mult * k_ms,
+                             mult * p_ms,
+                             mult * (n * ((2 * sh + 2 * sw + 3) * 4 + 4
+                                          + sw * sh * 4) + table_bytes),
+                             mult * 16 * n * sw * sh)
+                del got, pk, pp
+            resi = torch.from_numpy(rng.integers(
+                -lim + 1, lim, size=(n, sh, sw)).astype(np.int32) >> 2
+                ).to(dev)
+            kernel_rect_chain(resi, th, tv, bd, time_it, rect, mult)
+            del resi
+        del plane
+    for name, st in rect.items():
+        st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
+        print(f"[3] {name} at the rect and ISP shapes: exact vs plain; per "
+              f"1080p MTT frame (all those launches): kernel "
+              f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
+              f"{st['bound_ms']:.3f} ms ({st['bound_by']}), library "
+              f"{st['library_ms']}", flush=True)
     torch.cuda.synchronize()
     for name, st in stats.items():
         if name in ("sao_stats", "alf_stats"):
@@ -1060,8 +1290,9 @@ def main() -> int:
     launches = dict(ops.COUNTS)
     phases = perf.report()
     for name in ops.COUNTS:
-        check(launches[name] > 0,
-              f"{name}: no launch on the slice-4a main path")
+        check((launches[name] > 0) == (name not in RECT_KERNELS),
+              f"{name}: {launches[name]} launches on the slice-4a main "
+              f"path")
     nals12 = read_annexb(bs12)
     types = [n.nal_type for n in nals12]
     slice_nals = [n for n in nals12 if n.nal_type in (0, 8)]
@@ -1113,7 +1344,90 @@ def main() -> int:
               f"stream")
         print(f"[13] 416x240 {mode.upper()} {n} frames {kw}: {len(a)} bytes, "
               f"{el:.2f} s; kernel stream == plain stream", flush=True)
-    print(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    launches12 = launches
+
+    # 14. the slice-2c main path: 2 frames 1080p All-Intra through
+    # encode_sequence with the MTT lattice, ISP, MRL and dependent
+    # quantization; its counts fill the table for the rect kernels
+    check(rdo._candidate_shapes(64, 8, True) == MTT_SHAPES,
+          "the MTT lattice differs from MTT_SHAPES")
+    kw2c = dict(qp=32, mtt=True, isp=True, mrl=True, dep_quant=True)
+    perf.reset()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    bs14, recons14, stats14 = encode_sequence(frames, **kw2c)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches14 = dict(ops.COUNTS)
+    phases = perf.report()
+    for name in ops.COUNTS:
+        check((launches14[name] > 0) == (name not in ME_KERNELS),
+              f"{name}: {launches14[name]} launches on the slice-2c main "
+              f"path")
+    types = [n.nal_type for n in read_annexb(bs14)]
+    check(types[:2] == [15, 16] and types[2:].count(8) == len(frames)
+          and set(types[2:]) <= {8, 17, 24}, f"slice-2c NAL types {types}")
+    for f, r, s14 in zip(frames, recons14, stats14):
+        for a, b in ((f.y, r.y), (f.cb, r.cb), (f.cr, r.cr)):
+            check(a.shape == b.shape and int(b.min()) >= 0
+                  and int(b.max()) <= 255, "slice-2c recon out of range")
+        for k in ("psnr_y", "psnr_cb", "psnr_cr"):
+            check(30.0 < s14[k] < 70.0, f"slice 2c {k} {s14[k]}")
+    check(20000 < len(bs14) < 2 * 600000, f"slice-2c stream {len(bs14)} "
+          f"bytes")
+    kinds = [s14["leaf_kinds"] for s14 in stats14]
+    for k in ("rect", "tt_mid", "isp", "mrl"):
+        check(sum(kd[k] for kd in kinds) > 0, f"no {k} leaf on the 2c path")
+    shapes14 = {}
+    for kd in kinds:
+        for k, v in kd["shapes"].items():
+            shapes14[k] = shapes14.get(k, 0) + v
+    # the search alone: kernels against the plain path, and its time
+    v14 = torch.from_numpy(rdo.pack_planes(frames[0].y, frames[0].cb,
+                                           frames[0].cr)).to(dev)
+    search = lambda: rdo.eval_all_sizes(v14, MTT_SHAPES, 32, 8, W_HD, H_HD,
+                                        False, True, True, True)
+    got = search()
+    with ops.plain():
+        want = search()
+    check(torch.equal(got, want), "1080p MTT + ISP search vector: kernels "
+          "!= plain")
+    search_ms = cuda_ms(search, iters=3, warmup=1)
+    with ops.plain():
+        search_plain_ms = cuda_ms(search, iters=1, warmup=0)
+    del got, want
+    print(f"[14] slice-2c main path: 2 frames 1920x1080 AI QP32 "
+          f"(encode_sequence defaults + mtt, isp, mrl, dep_quant) on {kind}: "
+          f"{len(bs14)} bytes, {elapsed:.2f} s, "
+          f"{len(frames) / elapsed:.4f} frames/s; PSNR-Y/Cb/Cr "
+          f"{[round(float(x['psnr_y']), 4) for x in stats14]} / "
+          f"{[round(float(x['psnr_cb']), 4) for x in stats14]} / "
+          f"{[round(float(x['psnr_cr']), 4) for x in stats14]} dB; leaves "
+          f"{[x['n_cu'] for x in stats14]}: rect "
+          f"{[kd['rect'] for kd in kinds]}, TT mid "
+          f"{[kd['tt_mid'] for kd in kinds]}, ISP "
+          f"{[kd['isp'] for kd in kinds]}, MRL {[kd['mrl'] for kd in kinds]};"
+          f" by shape {json.dumps(dict(sorted(shapes14.items())))}; one "
+          f"frame's search {search_ms:.3f} ms (plain "
+          f"{search_plain_ms:.3f} ms), vector == plain; launches "
+          f"{launches14}; phases (thread-seconds) {json.dumps(phases)}",
+          flush=True)
+
+    # 15. kernel path byte-equal to the plain path at 416x240 with the
+    # slice-2c tools, single tile and 2 tile columns
+    for cols in (1, 2):
+        t0 = time.perf_counter()
+        a = encode_sequence(small, num_tile_cols=cols, **kw2c)[0]
+        el = time.perf_counter() - t0
+        with ops.plain():
+            b = encode_sequence(small, num_tile_cols=cols, **kw2c)[0]
+        check(a == b, f"416x240 2c {cols} tile column(s): kernel stream != "
+              f"plain stream")
+        print(f"[15] 416x240 2 frames mtt+isp+mrl+dep_quant, {cols} tile "
+              f"column(s): {len(a)} bytes, {el:.2f} s; kernel stream == "
+              f"plain stream", flush=True)
+    print(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -1134,15 +1448,28 @@ def main() -> int:
            "me_prep": "vvc/enc/me.py:73",
            "me_coarse": "vvc/enc/me.py:108",
            "me_int": "vvc/enc/me.py:150,156,167",
-           "me_qpel": "vvc/enc/me.py:203"}
+           "me_qpel": "vvc/enc/me.py:203",
+           "ref_lines_rect": "vvc/enc/rdo.py:86",
+           "intra_pred_all_rect": "vvc/kernels/intra.py:799",
+           "intra_pred_one_rect": "vvc/kernels/intra.py:822"}
+    # launches: the rect kernels' from the slice-2c path [14], the others'
+    # from the slice-4a path [12], as before
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
-              "replaces": rep[k], "launches": launches[k],
+              "replaces": rep[k],
+              "launches": (launches14 if k in RECT_KERNELS
+                           else launches12)[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],
               "bound_ms": stats[k]["bound_ms"],
               "bound_by": stats[k]["bound_by"],
               "library_ms": stats[k]["library_ms"]} for k in ops.COUNTS]
+    for row in table:
+        if row["name"] in rect:
+            r = rect[row["name"]]
+            row["rect"] = {"launches": launches14[row["name"]],
+                           **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -240,11 +240,14 @@ def test_2b_search_vector_equal_plain(dev, cols):
     got, want = _both(rdo.eval_all_sizes_frames, vec, shapes, 32, 8, w, h,
                       cols, False, True, True)
     assert torch.equal(got, want)
-    # every kernel of the intra search (the filter statistics run after
-    # it; the motion search's kernels belong to the inter search)
+    # every kernel of the QT-only intra search (the filter statistics run
+    # after it; the motion search's kernels belong to the inter search,
+    # the rect kernels to the MTT lattice)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
-                            "me_coarse", "me_int", "me_qpel"))
+                            "me_coarse", "me_int", "me_qpel",
+                            "ref_lines_rect", "intra_pred_all_rect",
+                            "intra_pred_one_rect"))
 
 
 @pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
@@ -398,3 +401,132 @@ def test_inter_stream_equal_plain(dev, mode, n):
     with ops.plain():
         b = encode_sequence(clip, qp=32, mode=mode, **kw)[0]
     assert a == b
+
+
+# ---------------------------------------------------------------------------
+# Slice 2c: the rect kernels (MTT lattice, ISP sub-TUs)
+# ---------------------------------------------------------------------------
+
+RECT = ((64, 32), (32, 64), (64, 16), (16, 64), (32, 16), (16, 32), (32, 8),
+        (8, 32), (16, 8), (8, 16))
+ISP_RECT = ((8, 4), (16, 4), (32, 4), (4, 8), (4, 16), (4, 32), (16, 8),
+            (32, 8), (8, 16), (8, 32))
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_rect_prediction_kernels_equal_plain(dev, bit_depth):
+    """ref_lines_rect at every rect lattice and ISP shape (grid and random
+    positions, frame edges included), intra_pred_all_rect at the ten rect
+    shapes, intra_pred_one_rect at the ISP shapes for every mode, the
+    wide-angle ones and out-of-range modes."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import rdo
+    from vvc_torch.kernels import intra
+    rng = np.random.default_rng(40 + bit_depth)
+    ph, pw = 96, 160
+    plane = torch.from_numpy(rng.integers(0, 1 << bit_depth, (ph, pw))
+                             .astype(np.int32)).to(dev)
+    before = dict(ops.COUNTS)
+    shapes = sorted(set(RECT) | set(ISP_RECT))
+    for w, h in shapes:
+        xs = torch.from_numpy(rng.integers(0, pw, 64).astype(np.int32)).to(dev)
+        ys = torch.from_numpy(rng.integers(0, ph, 64).astype(np.int32)).to(dev)
+        xs[:8] = 0
+        ys[4:12] = 0
+        refs, want = _both(rdo.build_ref_lines_device_rect, plane, xs, ys, w,
+                           h, bit_depth)
+        assert torch.equal(refs, want), (w, h)
+        if (w, h) in RECT:
+            got, want = _both(intra.predict_all_modes_batch_rect, refs, w, h,
+                              bit_depth)
+            assert torch.equal(got, want), (w, h)
+        if (w, h) in ISP_RECT:
+            modes = np.concatenate([np.arange(67), rng.integers(0, 67, 61),
+                                    [-2, 67, 80]]).astype(np.int32)
+            r2 = torch.from_numpy(rng.integers(0, 1 << bit_depth, (
+                len(modes), 2 * h + 2 * w + 3)).astype(np.int32)).to(dev)
+            r2[:10] = r2[:10, :1]
+            got, want = _both(intra.predict_modes_batch_rect, r2,
+                              torch.from_numpy(modes).to(dev), w, h,
+                              bit_depth)
+            assert torch.equal(got, want), (w, h)
+    assert ops.COUNTS["ref_lines_rect"] == before["ref_lines_rect"] + len(
+        shapes)
+    assert ops.COUNTS["intra_pred_all_rect"] == before[
+        "intra_pred_all_rect"] + len(RECT)
+    assert ops.COUNTS["intra_pred_one_rect"] == before[
+        "intra_pred_one_rect"] + len(ISP_RECT)
+    assert ops.COUNTS["ref_lines"] == before["ref_lines"]
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_rect_transform_quant_equal_plain(dev, bit_depth):
+    """transform_fwd → quant_rate (intra and inter dead zone) →
+    transform_inv at every rect and 4-point shape of the path with its
+    transform pairs (MTS where both sides are 8..32, ISP's implicit pair,
+    DCT2 with a 64-point side); the rates bit for bit."""
+    import torch
+    from vvc_torch.kernels import quant, transform
+    from vvc_torch.kernels.isp import isp_tr_types
+    rng = np.random.default_rng(50 + bit_depth)
+    lim = 1 << bit_depth
+    for w, h in sorted(set(RECT) | set(ISP_RECT) | {(8, 8)}):
+        pairs = {isp_tr_types(w, h), (0, 0)}
+        if 8 <= w <= 32 and 8 <= h <= 32:
+            pairs |= set(transform.MTS_TR)
+        resi = torch.from_numpy(rng.integers(-lim + 1, lim, (200, h, w))
+                                .astype(np.int32)).to(dev)
+        for th, tv in sorted(pairs):
+            coeff, want = _both(transform.fwd_transform_batch, resi,
+                                bit_depth, th, tv)
+            assert torch.equal(coeff, want), (w, h, th, tv)
+            for qp in (0, 22, 37, 63):
+                for intra_dz in (False, True):
+                    got, want = _both(quant.quant_rate, coeff, qp, bit_depth,
+                                      False, intra_dz)
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32)), (w, h)
+                    assert torch.equal(got[1], want[1]), (w, h)
+            rec, want = _both(transform.inv_transform_batch, got[1],
+                              bit_depth, th, tv)
+            assert torch.equal(rec, want), (w, h, th, tv)
+
+
+@pytest.mark.parametrize("cols", (1, 2))
+def test_mtt_isp_search_vector_equal_plain(dev, cols):
+    """The MTT + ISP search (LFNST and the chroma decision on) at 416×240,
+    one frame or two tile columns: kernels == plain, and every kernel of
+    the intra search launched, the rect ones included."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import rdo
+    from vvc_torch.io.synth import synth_frame
+    w, h = 416 // cols, 240
+    shapes = rdo._candidate_shapes(64, 8, True)
+    f = synth_frame(416, h, 3)
+    cut = lambda p, k: np.stack([p[:, i * k:(i + 1) * k] for i in range(cols)])
+    vec = torch.from_numpy(rdo.pack_planes(cut(f.y, w), cut(f.cb, w // 2),
+                                           cut(f.cr, w // 2))).to(dev)
+    ops.reset_counts()
+    got, want = _both(rdo.eval_all_sizes_frames, vec, shapes, 32, 8, w, h,
+                      cols, False, True, True, True)
+    assert torch.equal(got, want)
+    assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
+               if k not in ("sao_stats", "alf_stats", "me_prep",
+                            "me_coarse", "me_int", "me_qpel"))
+
+
+def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
+    """encode_sequence with mtt, isp, mrl and dep_quant at 416×240, 2
+    frames, single tile and 2 tile columns: kernel stream == plain."""
+    from vvc_torch import ops
+    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.io.synth import synth_frame
+    frames = [synth_frame(416, 240, t) for t in range(2)]
+    kw = dict(qp=32, mtt=True, isp=True, mrl=True, dep_quant=True)
+    for cols in (1, 2):
+        got = encode_sequence(frames, num_tile_cols=cols, **kw)[0]
+        with ops.plain():
+            want = encode_sequence(frames, num_tile_cols=cols, **kw)[0]
+        assert got == want, cols

@@ -4,8 +4,9 @@ MIP and deblocking (Encoder.encode_frame; slice 2b adds LFNST and CCLM),
 and lossy encode_sequence with vvc's default tool set (slice 3 adds SAO,
 ALF and CC-ALF) are byte-equal, single-tile and with 2 tile columns, the
 reconstructions are equal, and vvc's decoder decodes them with every
-picture hash OK.  Options of later slices raise.  Tolerance: exact (bytes
-and samples)."""
+picture hash OK.  Options of later slices (LMCS and WPP: slice 2d) raise;
+MTT, ISP, MRL and dependent quantization are tests/test_torch_mtt.py's.
+Tolerance: exact (bytes and samples)."""
 import numpy as np
 import pytest
 
@@ -51,14 +52,14 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw,match", [({"lossless": False, "mtt": True},
-                                       "slice 2c"),
+@pytest.mark.parametrize("kw,match", [({"lossless": False, "lmcs": True},
+                                       "slice 2d"),
                                       ({"lossless": False, "mode": "ra",
                                         "mctf": True}, "slice 4b"),
                                       ({"lossless": True, "target_kbps": 500},
                                        "rate-control item"),
                                       ({"lossless": True, "wpp": True},
-                                       "slice 2c")])
+                                       "slice 2d")])
 def test_options_of_later_slices_raise(kw, match):
     from vvc_torch.enc.encoder import encode_sequence as port_encode
     from vvc_torch.io.synth import synth_frame as port_synth_frame
@@ -153,8 +154,8 @@ def test_2b_encode_frame_smooth_lfnst_leaves():
     assert any(l.lfnst > 0 for _, leaves in out for l in leaves)
 
 
-@pytest.mark.parametrize("option,match", [("isp", "slice 2c"),
-                                          ("dep_quant", "slice 2c")])
+@pytest.mark.parametrize("option,match", [("lmcs", "slice 2d"),
+                                          ("bdof", "slice 4b")])
 def test_lossy_options_of_later_slices_raise(option, match):
     from vvc_torch.enc.encoder import Encoder
     from vvc_torch.hls.ps import PPS as PortPPS, SPS as PortSPS

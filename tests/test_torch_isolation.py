@@ -1,8 +1,9 @@
 """vvc_torch stands alone: after importing it and running tiny CPU
 encodes — lossless encode_sequence, a lossy Encoder.encode_frame with
 MTS, MIP and deblocking, one with LFNST and CCLM too, a lossy
-encode_sequence with the default tool set (SAO, ALF and CC-ALF on), and
-inter encode_sequence in LDP and RA — no JAX module and no module of the
+encode_sequence with the default tool set (SAO, ALF and CC-ALF on), one
+with MTT and ISP (and MRL and dependent quantization) too, and inter
+encode_sequence in LDP and RA — no JAX module and no module of the
 JAX package `vvc` is loaded; and the entry points, given no device, ask
 for CUDA and raise where CUDA is absent instead of falling back to the
 CPU."""
@@ -41,6 +42,11 @@ clip = motion_clip(5, 64, 64)
 bs4, _, stats4 = encode_sequence(clip[:3], qp=32, mode="ldp", device="cpu")
 bs5, _, stats5 = encode_sequence(clip, qp=32, mode="ra", gop_size=4,
                                  device="cpu")
+bs6, _, stats6 = encode_sequence(frames, qp=32, mtt=True, isp=True,
+                                 device="cpu")
+bs7, _, _ = encode_sequence(frames[:1], qp=32, mtt=True, isp=True, mrl=True,
+                            dep_quant=True, device="cpu")
+lossy_ok = lossy_ok and bool(len(bs6) > 0 and len(bs7) > 0)
 inter_ok = bool(len(bs4) > 0 and len(bs5) > 0
                 and [s["slice_type"] for s in stats4] == [2, 1, 1]
                 and [s["slice_type"] for s in stats5] == [2, 0, 0, 0, 1])
@@ -49,6 +55,7 @@ if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
                  lambda: encode_sequence(frames, qp=32),
                  lambda: encode_sequence(clip[:2], qp=32, mode="ldp"),
+                 lambda: encode_sequence(frames, qp=32, mtt=True, isp=True),
                  lambda: Encoder(sps, PPS(init_qp=32))):
         try:
             call()
@@ -79,7 +86,8 @@ def test_port_imports_no_jax_and_no_vvc():
         "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
         "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one",
         "sao_stats", "alf_stats", "me_prep", "me_coarse", "me_int",
-        "me_qpel")}
+        "me_qpel", "ref_lines_rect", "intra_pred_all_rect",
+        "intra_pred_one_rect")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 4
+        assert len(res["raised"]) == 5
         assert all("CUDA is not available" in r for r in res["raised"])

@@ -201,10 +201,10 @@ def test_sse_above_2_24_bit_equal(port, monkeypatch, size, bit_depth):
     big = []
     sse_f32 = port._sse_f32
 
-    def counted(d):
+    def counted(d, **order):
         dl = d.to(torch.int64)
         big.append(int(((dl * dl).sum(dim=(1, 2)) >= 1 << 24).sum()))
-        return sse_f32(d)
+        return sse_f32(d, **order)
 
     monkeypatch.setattr(port, "_sse_f32", counted)
     n, small = 8, size <= 32
@@ -226,12 +226,22 @@ def test_sse_above_2_24_bit_equal(port, monkeypatch, size, bit_depth):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"lossless": False, "lfnst": False, "isp": True}, "slice 2c"),
-    ({"lossless": True, "mtt": True}, "slice 2c")],
+    ({"lossless": False, "lfnst": False, "isp": True}, "square-only"),
+    ({"lossless": True, "mtt": True}, "square-only")],
     ids=["isp", "mtt"])
 def test_lossy_and_mtt_raise_not_implemented(frame, port, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        port.rdo_partition(frame.y, 32, 8, device="cpu", **kw)
+    """ISP and the MTT lattice run since slice 2c: the search tiles the
+    frame with leaves of the lattice's shapes.  What still raises is a
+    square-only tool asked for on a rect shape (vvc asserts the same)."""
+    import torch
+    _, _, leaves = port.rdo_partition(frame.y, 32, 8, device="cpu", **kw)
+    assert sum(l.w * l.h for l in leaves) == W * H
+    if kw.get("mtt"):
+        assert any(l.w != l.h for l in leaves)
+    orig = torch.zeros((1, 8, 16), dtype=torch.int32)
+    refs = torch.zeros((1, 2 * 8 + 2 * 16 + 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        port.eval_blocks(orig, refs, 16, 32, 8, try_mip=True, h=8)
 
 
 # ---------------------------------------------------------------------------
@@ -366,15 +376,15 @@ def tied_chroma(h, w, rng, bit_depth=10):
 def _swap_chroma_order(monkeypatch, port, which):
     """Sum the DM (which = 0) or the LM (which = 1) chroma SSEs in the other
     of the two orders.  eval_chroma_modes asks for the 4 sums of a plane in
-    turn, DM first; the luma SSE, asked for without an order, is left
-    alone."""
+    turn, DM first; the luma SSE, asked for without row lanes (at most a
+    part order), is left alone."""
     sse = port._sse_f32
     calls = itertools.count()
 
-    def swapped(d, row_lanes=None):
+    def swapped(d, row_lanes=None, **order):
         if row_lanes is not None and (next(calls) % 4 > 0) == bool(which):
             row_lanes = not row_lanes
-        return sse(d, row_lanes)
+        return sse(d, row_lanes, **order)
     monkeypatch.setattr(port, "_sse_f32", swapped)
 
 

@@ -1,5 +1,6 @@
 // Intra prediction of N square S x S blocks: all 67 modes of each block
-// (`intra_pred_all`), or one mode per block (`intra_pred_one`).
+// (`intra_pred_all`), or one mode per block (`intra_pred_one`); and of N
+// W x H rectangles (`intra_pred_all_rect`, `intra_pred_one_rect`).
 //
 // `intra_pred_all` replaces vvc/kernels/intra.py:671
 // predict_all_modes_batch, and `intra_pred_one` vvc/kernels/intra.py:878
@@ -20,6 +21,20 @@
 // clamped table rows do (mv = clip(m-34, 0, 32), mh = clip(34-m, 0, 32)):
 // m > 66 predicts as 66, m < 0 as 2; planar and DC read no table row.
 //
+// `intra_pred_all_rect` replaces vvc/kernels/intra.py:799
+// predict_all_modes_batch_rect (the MTT lattice's rectangles, 67 modes),
+// `intra_pred_one_rect` :822 predict_modes_batch_rect (one mode per ISP
+// sub-TU).  Rect semantics: the line is [left 2H reversed, corner, top 2W,
+// 2 pads]; a signaled mode m >= 2 is remapped (wide angles, remap[67]);
+// a remapped mode rm >= 34 takes row rm-34 of the vertical family's
+// tables [49,4,H,W] (PDPC [49,H,W]), any other row 68-rm-34 of the
+// horizontal family's [49,4,W,H] applied to the reversed line
+// ct(i) = C[max(2H+2W-i, 0)] and transposed; rows clipped to 0..48 as
+// vvc clips them.  Planar: ((H-1-y)·top[x] + (y+1)·left[H]) << log2 W plus
+// ((W-1-x)·left[y] + (x+1)·top[W]) << log2 H, + W·H, >> log2(W·H) + 1;
+// DC averages the longer side (both when square); both then take the
+// PDPC blend with scale (log2 W + log2 H - 2) >> 2.
+//
 // `intra_pred_all`: grid (N, 67), one CTA per (block, mode);
 // `intra_pred_one`: grid N, one CTA per block with the block's own mode.
 // Each CTA stages its block's reference line (at most 259 ints) in shared
@@ -31,7 +46,7 @@
 // reaches HBM, is the next step for speed.
 #include <cuda_runtime.h>
 
-#define MAX_LINE (4 * 64 + 3)
+#define MAX_LINE (4 * 64 + 3)  // also 2H + 2W + 3 of every rectangle
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -166,5 +181,153 @@ extern "C" int intra_pred_one_launch(const int* refs, const int* modes, int n,
   intra_pred_one_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
       refs, modes, s, log2s, (1 << bit_depth) - 1, idx, co, pw, pi, pdiff,
       out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// W x H rectangles
+// ---------------------------------------------------------------------------
+
+struct RectTables {
+  const int* remap;                     // [67]
+  const int *vidx, *vco, *vw, *vi, *vd;  // [49,4,H,W] x2, [49,H,W] x2, [49]
+  const int *hidx, *hco, *hw, *hi, *hd;  // [49,4,W,H] x2, [49,W,H] x2, [49]
+};
+
+// Mode m (0..66, signaled) of one W x H block from its line c (shared
+// memory) into o[H*W]; every thread of the CTA takes part.
+__device__ void predict_block_rect(const int* c, int m, int w, int h,
+                                   int log2w, int log2h, int maxv,
+                                   const RectTables& t, int* __restrict__ o) {
+  const int hw = w * h;
+  if (m == 0 || m == 1) {
+    int dc = 0;
+    if (m == 1) {
+      // top[k] = C[2H+1+k], left[k] = C[2H-1-k]
+      int st = 0, sl = 0;
+      if (w >= h)
+        for (int k = 0; k < w; ++k) st += c[2 * h + 1 + k];
+      if (h >= w)
+        for (int k = 0; k < h; ++k) sl += c[2 * h - 1 - k];
+      if (w == h)
+        dc = (st + sl + w) >> (log2w + 1);
+      else if (w > h)
+        dc = (st + (w >> 1)) >> log2w;
+      else
+        dc = (sl + (h >> 1)) >> log2h;
+    }
+    const int scale = (log2w + log2h - 2) >> 2;
+    const int below_left = c[h - 1];          // left[H]
+    const int above_right = c[2 * h + 1 + w]; // top[W]
+    for (int e = threadIdx.x; e < hw; e += blockDim.x) {
+      const int y = e >> log2w, x = e & (w - 1);
+      const int left_y = c[2 * h - 1 - y];
+      const int top_x = c[2 * h + 1 + x];
+      int p;
+      if (m == 0) {
+        const int pv = ((h - 1 - y) * top_x + (y + 1) * below_left) << log2w;
+        const int ph = ((w - 1 - x) * left_y + (x + 1) * above_right) << log2h;
+        p = (pv + ph + hw) >> (log2w + log2h + 1);
+      } else {
+        p = dc;
+      }
+      const int wl = 32 >> min(31, (2 * x) >> scale);
+      const int wt = 32 >> min(31, (2 * y) >> scale);
+      p = (wl * left_y + wt * top_x + (64 - wl - wt) * p + 32) >> 6;
+      o[e] = clampi(p, 0, maxv);
+    }
+    return;
+  }
+  const int rm = __ldg(t.remap + m);
+  const bool vert = rm >= 34;
+  const int pos = vert ? clampi(rm - 34, 0, 48) : clampi(34 - rm, 0, 48);
+  const long long tab = (long long)pos * 4 * hw;
+  const int* ti = (vert ? t.vidx : t.hidx) + tab;
+  const int* tc = (vert ? t.vco : t.hco) + tab;
+  const int* tw = (vert ? t.vw : t.hw) + (long long)pos * hw;
+  const int* tI = (vert ? t.vi : t.hi) + (long long)pos * hw;
+  const int diff = __ldg((vert ? t.vd : t.hd) + pos);
+  const int corner = c[2 * h];  // also ct[2W]
+  const int rev = 2 * h + 2 * w;
+  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
+    const int y = e >> log2w, x = e & (w - 1);
+    // v-space index: W x H for the vertical family, H x W transposed
+    const int v = vert ? e : x * h + y;
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int id = __ldg(ti + k * hw + v);
+      const int r = vert ? c[id] : c[max(rev - id, 0)];
+      acc += __ldg(tc + k * hw + v) * r;
+    }
+    int p = (acc + 32) >> 6;
+    const int wgt = __ldg(tw + v);
+    const int id = __ldg(tI + v);
+    const int ref = vert ? c[id] : c[max(rev - id, 0)];
+    p += diff ? (wgt * (ref - corner)) >> 6 : (wgt * (ref - p) + 32) >> 6;
+    o[e] = clampi(p, 0, maxv);
+  }
+}
+
+__device__ __forceinline__ int log2i(int v) { return 31 - __clz(v); }
+
+__global__ void intra_pred_all_rect_kernel(const int* __restrict__ refs,
+                                           int w, int h, int maxv,
+                                           RectTables t,
+                                           int* __restrict__ out) {
+  __shared__ int c[MAX_LINE];
+  const int b = blockIdx.x;
+  const int m = blockIdx.y;
+  stage_line(refs, b, 2 * h + 2 * w + 3, c);
+  predict_block_rect(c, m, w, h, log2i(w), log2i(h), maxv, t,
+                     out + ((long long)b * 67 + m) * w * h);
+}
+
+__global__ void intra_pred_one_rect_kernel(const int* __restrict__ refs,
+                                           const int* __restrict__ modes,
+                                           int w, int h, int maxv,
+                                           RectTables t,
+                                           int* __restrict__ out) {
+  __shared__ int c[MAX_LINE];
+  const int b = blockIdx.x;
+  stage_line(refs, b, 2 * h + 2 * w + 3, c);
+  // a mode outside 0..66 reads the remap entry jnp's clamped gather reads
+  predict_block_rect(c, clampi(modes[b], 0, 66), w, h, log2i(w), log2i(h),
+                     maxv, t, out + (long long)b * w * h);
+}
+
+static bool rect_ok(int w, int h) {
+  auto side = [](int s) {
+    return s == 4 || s == 8 || s == 16 || s == 32 || s == 64;
+  };
+  return side(w) && side(h);
+}
+
+extern "C" int intra_pred_all_rect_launch(
+    const int* refs, int n, int w, int h, int bit_depth, const int* remap,
+    const int* vidx, const int* vco, const int* vw, const int* vi,
+    const int* vd, const int* hidx, const int* hco, const int* hw,
+    const int* hi, const int* hd, int* out, void* stream) {
+  if (n < 0 || !rect_ok(w, h)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  RectTables t{remap, vidx, vco, vw, vi, vd, hidx, hco, hw, hi, hd};
+  const int threads = w * h < 256 ? w * h : 256;
+  dim3 grid((unsigned)n, 67);
+  intra_pred_all_rect_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      refs, w, h, (1 << bit_depth) - 1, t, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int intra_pred_one_rect_launch(
+    const int* refs, const int* modes, int n, int w, int h, int bit_depth,
+    const int* remap, const int* vidx, const int* vco, const int* vw,
+    const int* vi, const int* vd, const int* hidx, const int* hco,
+    const int* hw, const int* hi, const int* hd, int* out, void* stream) {
+  if (n < 0 || !rect_ok(w, h)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  RectTables t{remap, vidx, vco, vw, vi, vd, hidx, hco, hw, hi, hd};
+  const int threads = w * h < 256 ? w * h : 256;
+  intra_pred_one_rect_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
+      refs, modes, w, h, (1 << bit_depth) - 1, t, out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Quantise, price and dequantise square coefficient blocks in one pass.
+// Quantise, price and dequantise H x W coefficient blocks in one pass.
 //
 // Replaces three TPU device functions that the RDO's rd_pass chains:
 // vvc/kernels/quant.py:87 quant_batch (dead zone `offset`: 171/512 for the
@@ -13,39 +13,50 @@
 // `log` is XLA-CPU's own float32 log of 1..32768, read from a table
 // (vvc_torch/rom/log_table.py), never log2f/logf: those differ from it in
 // the last bit.  The block's rate is summed in the order XLA-CPU's fused
-// program uses (vvc_torch/kernels/quant.py xla_block_sum), so it is
-// bit-equal:
-//   S = 8..32: per row v, lanes k = 0..7 hold x[v][k] + x[v][8+k] + ...
-//     (part p added onto the sum of parts < p), the running total joins
-//     lane 0 first, then ((l0+l4)+(l2+l6)) + ((l1+l5)+(l3+l7));
-//   S = 64: four 32×32 windows summed row-major, (W00+W01)+(W10+W11);
-//   S = 8 with `row_lanes` (the order of the LFNST stage's rate): lane v
-//     sums row v left to right, then the same halving tree.
+// program uses for the shape (vvc_torch/kernels/quant.py xla_block_sum,
+// rate_order), so it is bit-equal:
+//   order 0, W = 8..32: per row v, lanes k = 0..7 hold x[v][k] +
+//     x[v][8+k] + ... (part p added onto the sum of parts < p), the
+//     running total joins lane 0 first, then ((l0+l4)+(l2+l6)) +
+//     ((l1+l5)+(l3+l7));
+//   order 0 with a side of 64: windows of min(H,32) x min(W,32) summed
+//     row-major, then W0+W1 or (W00+W01)+(W10+W11);
+//   order 1 (row lanes, H = 8..32): lane v sums rows v, v+8, ... each
+//     left to right, then the same halving tree (4-wide blocks, and the
+//     LFNST stage's 8x8 rate);
+//   order 2 (tail, W = 16, 32): per row, columns 0..W-9 as in order 0,
+//     the tree, then the last 8 columns one by one (blocks of <= 8 rows).
 //
-// One CTA per block; the S×S level bits sit in shared memory.  Lanes 1..7
+// One CTA per block; the H*W level bits sit in shared memory.  Lanes 1..7
 // of every row are summed in parallel; one thread then walks the rows
-// (lane 0 carries the running total); at S = 64 four threads walk the
-// windows.  The levels themselves are never written: the RD search reads
-// only the rate and the dequantised block, which both follow from them.  Bound:
-// bytes — 4 B read and 4 B written per coefficient, plus 4 B per block.
+// (lane 0 carries the running total); with a side of 64 one thread per
+// window walks it.  The levels themselves are never written: the RD
+// search reads only the rate and the dequantised block, which both follow
+// from them.  Bound: bytes — 4 B read and 4 B written per coefficient,
+// plus 4 B per block.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxS = 64;
+constexpr int kMaxN = 64 * 64;
+
+__device__ __forceinline__ float tree8(const float* ln) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(ln[0], ln[4]), __fadd_rn(ln[2], ln[6])),
+                   __fadd_rn(__fadd_rn(ln[1], ln[5]), __fadd_rn(ln[3], ln[7])));
+}
 
 __global__ void quant_rate_kernel(const int* __restrict__ coeff,
                                   const float* __restrict__ log_tab,
                                   const float* __restrict__ base_tab,
                                   int* __restrict__ deq,
-                                  float* __restrict__ rate, int s, int scale,
-                                  int offset, int qbits, int dscale, int sh6,
-                                  int shift, float log_scale,
-                                  int row_lanes) {
-  __shared__ float bits[kMaxS * kMaxS];
+                                  float* __restrict__ rate, int w, int h,
+                                  int scale, int offset, int qbits,
+                                  int dscale, int sh6, int shift,
+                                  float log_scale, int order) {
+  __shared__ float bits[kMaxN];
   __shared__ float lanes[32 * 8];
   __shared__ float win[4];
-  const int nn = s * s;
+  const int nn = w * h;
   const long long base = (long long)blockIdx.x * nn;
   const int guard = (1 << 29) >> sh6;
   const int rnd = 1 << (shift - 1);
@@ -61,43 +72,46 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
     deq[base + i] = min(max((lv + rnd) >> shift, -32768), 32767);
   }
   __syncthreads();
-  if (s == 64) {
-    if (threadIdx.x < 4) {
-      const int wy = threadIdx.x >> 1, wx = threadIdx.x & 1;
+  if (order == 0 && (w == 64 || h == 64)) {
+    const int wh = min(h, 32), ww = min(w, 32);
+    const int nx = w / ww, nwin = (h / wh) * nx;
+    if (threadIdx.x < nwin) {
+      const int wy = threadIdx.x / nx, wx = threadIdx.x - wy * nx;
       float acc = 0.0f;
-      for (int r = 0; r < 32; ++r) {
-        const float* row = bits + (wy * 32 + r) * 64 + wx * 32;
-        for (int c = 0; c < 32; ++c) acc = __fadd_rn(acc, row[c]);
+      for (int r = 0; r < wh; ++r) {
+        const float* row = bits + (wy * wh + r) * w + wx * ww;
+        for (int c = 0; c < ww; ++c) acc = __fadd_rn(acc, row[c]);
       }
       win[threadIdx.x] = acc;
     }
     __syncthreads();
     if (threadIdx.x == 0)
-      rate[blockIdx.x] = __fadd_rn(__fadd_rn(win[0], win[1]),
-                                   __fadd_rn(win[2], win[3]));
+      rate[blockIdx.x] =
+          nwin == 4 ? __fadd_rn(__fadd_rn(win[0], win[1]),
+                                __fadd_rn(win[2], win[3]))
+                    : __fadd_rn(win[0], win[1]);
     return;
   }
-  if (row_lanes) {  // s == 8
+  if (order == 1) {  // row lanes, 8 <= h <= 32
     if (threadIdx.x < 8) {
-      const float* row = bits + threadIdx.x * 8;
-      float acc = row[0];
-      for (int c = 1; c < 8; ++c) acc = __fadd_rn(acc, row[c]);
-      lanes[threadIdx.x] = acc;
+      const int v = threadIdx.x;
+      float acc = bits[v * w];
+      for (int r = 0; r < h; r += 8) {
+        const float* row = bits + (r + v) * w;
+        for (int c = (r == 0); c < w; ++c) acc = __fadd_rn(acc, row[c]);
+      }
+      lanes[v] = acc;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      const float* ln = lanes;
-      rate[blockIdx.x] = __fadd_rn(
-          __fadd_rn(__fadd_rn(ln[0], ln[4]), __fadd_rn(ln[2], ln[6])),
-          __fadd_rn(__fadd_rn(ln[1], ln[5]), __fadd_rn(ln[3], ln[7])));
-    }
+    if (threadIdx.x == 0) rate[blockIdx.x] = tree8(lanes);
     return;
   }
-  const int parts = s >> 3;
-  if (threadIdx.x < s * 8) {
+  // order 0 (all W/8 parts in lanes) or 2 (the last 8 columns one by one)
+  const int parts = order == 2 ? (w - 8) >> 3 : w >> 3;
+  if (threadIdx.x < h * 8) {
     const int v = threadIdx.x >> 3, k = threadIdx.x & 7;
     if (k > 0) {
-      const float* row = bits + v * s;
+      const float* row = bits + v * w;
       float r = row[k];
       for (int p = 1; p < parts; ++p) r = __fadd_rn(row[8 * p + k], r);
       lanes[threadIdx.x] = r;
@@ -106,34 +120,41 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
   __syncthreads();
   if (threadIdx.x == 0) {
     float tot = 0.0f;
-    for (int v = 0; v < s; ++v) {
-      const float* row = bits + v * s;
-      const float* ln = lanes + v * 8;
+    for (int v = 0; v < h; ++v) {
+      const float* row = bits + v * w;
+      float* ln = lanes + v * 8;
       float l0 = __fadd_rn(tot, row[0]);
       for (int p = 1; p < parts; ++p) l0 = __fadd_rn(row[8 * p], l0);
-      tot = __fadd_rn(__fadd_rn(__fadd_rn(l0, ln[4]), __fadd_rn(ln[2], ln[6])),
-                      __fadd_rn(__fadd_rn(ln[1], ln[5]),
-                                __fadd_rn(ln[3], ln[7])));
+      ln[0] = l0;
+      tot = tree8(ln);
+      if (order == 2)
+        for (int c = w - 8; c < w; ++c) tot = __fadd_rn(tot, row[c]);
     }
     rate[blockIdx.x] = tot;
   }
 }
 
+bool side_ok(int s) { return s == 4 || s == 8 || s == 16 || s == 32 || s == 64; }
+
 }  // namespace
 
 extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
                                  const float* base_tab, int* deq,
-                                 float* rate, int n, int s, int scale,
+                                 float* rate, int n, int w, int h, int scale,
                                  int offset, int qbits, int dscale, int sh6,
-                                 int shift, float log_scale, int row_lanes,
+                                 int shift, float log_scale, int order,
                                  void* stream) {
-  if (n < 0 || !(s == 8 || s == 16 || s == 32 || s == 64) || shift <= 0 ||
-      qbits <= 0 || sh6 < 0 || sh6 > 29 || (row_lanes && s != 8))
+  const bool shape_ok =
+      side_ok(w) && side_ok(h) &&
+      (order == 1 ? (h >= 8 && h <= 32)
+                  : (order == 2 ? (h <= 8 && (w == 16 || w == 32))
+                                : (order == 0 && w >= 8)));
+  if (n < 0 || !shape_ok || shift <= 0 || qbits <= 0 || sh6 < 0 || sh6 > 29)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int threads = s * s < 256 ? s * s : 256;
+  const int threads = w * h < 256 ? w * h : 256;
   quant_rate_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
-      coeff, log_tab, base_tab, deq, rate, s, scale, offset, qbits,
-      dscale, sh6, shift, log_scale, row_lanes);
+      coeff, log_tab, base_tab, deq, rate, w, h, scale, offset, qbits,
+      dscale, sh6, shift, log_scale, order);
   return (int)cudaGetLastError();
 }

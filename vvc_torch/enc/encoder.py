@@ -4,17 +4,19 @@ Port of vvc/enc/encoder.py (`Encoder`, `encode_sequence`) with `device`
 threaded through to the RDO searches and the SAO/ALF encoder statistics,
 the only device work.  It runs lossless All-Intra (slice 1) and lossy
 All-Intra with MTS, MIP and deblocking (slice 2a), LFNST and the device
-chroma decision, CCLM (slice 2b), and SAO, ALF and CC-ALF (slice 3),
+chroma decision, CCLM (slice 2b), SAO, ALF and CC-ALF (slice 3),
 whose encoder statistics run on the device (csrc/sao_stats.cu,
 csrc/alf_stats.cu) — the default lossy tool set of `encode_sequence` —
-and, slice 4a, translational P and B pictures in the LDP, LDB and RA GOPs
-(`mode="ldp" | "ldb" | "ra"`): the inter search of
-vvc_torch.enc.inter_search (csrc/me.cu), the DPB, the collocated motion
-field, per-layer QP offsets and GOP-boundary checkpoints.  The options of
-later slices raise NotImplementedError naming their slice: MTT, ISP, MRL,
-LMCS, dependent quantization and WPP (2c), affine ME, MCTF and the
-host-only inter tools (4b), rate control.  Everything after the search is
-the host code of vvc, copied.
+and the MTT lattice (QT/BT/TT), ISP, MRL and dependent quantization
+(slice 2c: the rect search on the device, the MRL choice in mode_decide
+and the trellis in the native recon core); and, slice 4a, translational P
+and B pictures in the LDP, LDB and RA GOPs (`mode="ldp" | "ldb" | "ra"`):
+the inter search of vvc_torch.enc.inter_search (csrc/me.cu), the DPB, the
+collocated motion field, per-layer QP offsets and GOP-boundary
+checkpoints.  The options of later slices raise NotImplementedError
+naming their slice: LMCS and WPP (2d), affine ME, MCTF and the host-only
+inter tools (4b), rate control.  Everything after the search is the host
+code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -73,20 +75,16 @@ def _not_in_slice(what: str, slice_name: str):
     return NotImplementedError(f"vvc_torch: {what} arrives with {slice_name}")
 
 
-_SLICE_2C = "slice 2c (MTT, ISP, MRL, LMCS, dependent quantization, WPP)"
+_SLICE_2D = "slice 2d (LMCS, WPP)"
 _RATE_CONTROL = ("the rate-control item of ROADMAP queue 1 (host ratectrl "
                  "and the frame-batched search's chroma orders)")
 
 
 def _check_sps(sps: SPS, pps: PPS) -> None:
     """Raise for every SPS/PPS option outside the ported slices."""
-    for on, what in ((sps.max_mtt_depth_intra > 0, "MTT"),
-                     (sps.isp, "ISP"), (sps.mrl, "MRL"),
-                     (sps.lmcs, "LMCS"),
-                     (sps.dep_quant, "dependent quantization"),
-                     (pps.wpp, "WPP row substreams")):
+    for on, what in ((sps.lmcs, "LMCS"), (pps.wpp, "WPP row substreams")):
         if on:
-            raise _not_in_slice(what, _SLICE_2C)
+            raise _not_in_slice(what, _SLICE_2D)
     for on, what in ((sps.affine, "affine ME"), (sps.bdof, "BDOF"),
                      (sps.dmvr, "DMVR"), (sps.mmvd, "MMVD"),
                      (sps.ciip, "CIIP"), (sps.gpm, "GPM"),
@@ -94,6 +92,21 @@ def _check_sps(sps: SPS, pps: PPS) -> None:
                      (sps.bcw, "BCW")):
         if on:
             raise _not_in_slice(what, SLICE_4B)
+
+
+def _leaf_kinds(split_map, leaf_map, leaves) -> dict:
+    """Leaves of a picture by kind (slice 2c's tools): rect, TT middle
+    children, ISP, MRL, and the count of each W×H shape."""
+    from vvc_torch.model.partition import SPLIT_TT_H, SPLIT_TT_V, child_blocks
+    mids = sum(1 for (x, y, w, h), code in split_map.items()
+               if code in (SPLIT_TT_H, SPLIT_TT_V)
+               and child_blocks(x, y, w, h, code)[1] in leaf_map)
+    shapes = {}
+    for l in leaves:
+        shapes[f"{l.w}x{l.h}"] = shapes.get(f"{l.w}x{l.h}", 0) + 1
+    return {"rect": sum(1 for l in leaves if l.w != l.h), "tt_mid": mids,
+            "isp": sum(1 for l in leaves if l.isp),
+            "mrl": sum(1 for l in leaves if l.mrl), "shapes": shapes}
 
 
 def _hash_sei_payload(planes, bit_depth: int = 8) -> bytes:
@@ -410,11 +423,14 @@ class Encoder:
 
         # phase 3: entropy per tile (parallel).  As in vvc, lossy intra
         # slices run the native C++ tree writer; inter slices, lossless,
-        # other CTU sizes, tile rows and tracing the Python TreeWriter.
+        # MTT, ISP, MRL, other CTU sizes, tile rows and tracing the Python
+        # TreeWriter.
         col_info = (col, poc, (tuple(p for p, _ in refs_l0),
                                tuple(p for p, _ in refs_l1)))
         use_native = (not inter_slice and sps.ctu_size == 64
+                      and sps.max_mtt_depth_intra == 0
                       and pps.num_tile_rows == 1
+                      and not sps.isp and not sps.mrl
                       and not sps.lossless and not _trace().enabled)
         if use_native:
             size_map = native_packer.build_size_map(
@@ -488,6 +504,8 @@ class Encoder:
             + [sum(l.pred == 1 and l.inter_dir == d for l in leaves)
                for d in (1, 2, 3)],
         }
+        if sps.max_mtt_depth_intra > 0 or sps.isp or sps.mrl:
+            stats["leaf_kinds"] = _leaf_kinds(split_map, leaf_map, leaves)
         if sao_params is not None:
             # CTUs per SAO type (OFF, BO, EO) for Y, Cb, Cr
             stats["sao_types"] = [
@@ -529,9 +547,10 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     B), "ra" (random access hierarchical B) — reference:
     EncGOP::compressGOP GOP structures.  It runs vvc's default lossy tool
     set (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF; lossless AI
-    too) with translational inter; the options of slices 2c and 4b, rate
-    control and the sharded path raise NotImplementedError naming the
-    slice that brings them.
+    too) with translational inter, and MTT, ISP, MRL and dependent
+    quantization (mtt=, isp=, mrl=, dep_quant=); the options of slices 2d
+    (LMCS, WPP) and 4b, rate control and the sharded path raise
+    NotImplementedError naming the slice that brings them.
     recons/stats are returned in display (POC) order.
     checkpoint_path: encoder state (DPB recons, NALs so far) is written
     there after each temporal-layer-0 anchor; resume=True continues an
@@ -540,7 +559,7 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     from vvc_torch.enc.gop import gop_order
 
     if wpp:
-        raise _not_in_slice("WPP row substreams", _SLICE_2C)
+        raise _not_in_slice("WPP row substreams", _SLICE_2D)
     if target_kbps > 0:
         raise _not_in_slice("rate control", _RATE_CONTROL)
     if _precomputed_rdo is not None:

@@ -3,33 +3,37 @@
 Port of vvc/enc/rdo.py (reference: EncCu.cpp → xCompressCU; IntraSearch.cpp
 → estIntraPredLumaQT's SATD prescreen + RD shortlist):
 
-  1. For every QT candidate size (8..64), evaluate ALL blocks of the frame
-     at that size on the device: reference lines from the original plane
-     (`build_ref_lines_device`, CUDA kernel csrc/ref_lines.cu), 67-mode
-     prediction (csrc/intra_pred.cu) plus, lossy at 8..32, the 9 MIP modes
+  1. For every candidate shape — the squares 8..64, and with MTT the
+     rectangles of the shape lattice and the TT middle-child planes —
+     evaluate ALL blocks of the frame at that shape on the device:
+     reference lines from the original plane (`build_ref_lines_device`,
+     csrc/ref_lines.cu, its W×H entry for rectangles), 67-mode prediction
+     (csrc/intra_pred.cu; `intra_pred_all_rect` with the wide-angle remap
+     for rectangles) plus, lossy at square 8..32, the 9 MIP modes
      (csrc/mip.cu), and the SATD prescreen (csrc/satd.cu).  Lossless stops
      there: SATD + √λ·mode bits is the cost.  Lossy keeps a stable top-3
      shortlist and runs full RD on it — forward transform
      (csrc/transform.cu), quantise + level rate + dequantise
      (csrc/quant_rate.cu), inverse transform, SSE — with DCT2 (stage A),
-     then the four other MTS pairs on the winner at 8..32 (stage B), then
-     the two LFNST kernels on the winner's DCT2 coefficients (stage C,
-     csrc/lfnst.cu).  With the chroma planes, each square block also
+     then the four other MTS pairs on the winner with both sides 8..32
+     (stage B), then, at squares, the two LFNST kernels on the winner's
+     DCT2 coefficients (stage C, csrc/lfnst.cu).  With ISP, both split
+     directions of the winning mode are costed sub-TU by sub-TU
+     (`eval_isp_dir`: `intra_pred_one` / `intra_pred_one_rect`, the
+     4-point transforms).  With the chroma planes, each square block also
      decides its chroma mode on the device (DM / LM / LM_L / LM_T by SSE
      on the original samples: csrc/cclm.cu for the downsampled luma and
      the linear models, csrc/intra_pred.cu `intra_pred_one` for DM).  One
      packed int32 vector per frame comes back.
-  2. The host DP over the size pyramid (`_dp_backtrack`, copied unchanged)
-     picks split/leaf per node.
+  2. The host DPs (`_dp_backtrack`, `_dp_backtrack_mtt`, copied
+     unchanged) pick split/leaf per node.
 
 The float32 costs are bit-equal to vvc's on XLA-CPU, because the host DP
 compares them bit for bit: λ and √λ are float32 bit tables, the level rate
 is XLA's own (vvc_torch.cabac.rates.level_bits), block sums follow XLA's
-order (vvc_torch.kernels.quant.xla_block_sum) and `sse + λ·(rate + bits)`
-is rounded once, as the FMA XLA-CPU contracts it to.
-
-Options of later slices raise NotImplementedError naming the slice: ISP
-and the MTT lattice (slice 2c).
+order for each shape (vvc_torch.kernels.quant.xla_block_sum, rate_order)
+and `sse + λ·(rate + bits)` is rounded once, as the FMA XLA-CPU contracts
+it to.
 
 Deviation from vvc: the JAX program also evaluates the TT middle-child
 planes (`_tt_descriptors`) for the QT-only candidate list, whose DP never
@@ -46,8 +50,9 @@ import torch
 from vvc_torch import ops
 from vvc_torch.kernels.cclm import (CCLM_SHIFT, derive_models_batch_dev,
                                     luma_ds_plane_dev)
-from vvc_torch.kernels.intra import (predict_all_modes_batch,
-                                     predict_modes_batch)
+from vvc_torch.kernels.intra import (predict_all_modes_batch_rect,
+                                     predict_modes_batch,
+                                     predict_modes_batch_rect)
 from vvc_torch.kernels.lfnst import (fwd_lfnst_batch, inv_lfnst_batch,
                                      lfnst_allowed)
 from vvc_torch.kernels.mip import (K_MIP_MODES, MIP_MODE_BASE, mip_allowed,
@@ -121,59 +126,69 @@ def rd_lambda(qp: int) -> float:
     return 0.57 * (2.0 ** ((qp - 12) / 3.0))
 
 
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"vvc_torch: {what} arrives with {slice_name}")
-
-
-def _slice2c(what: str):
-    return _later(what, "slice 2c (MTT, ISP, WPP)")
+def build_ref_lines_device_rect_plain(plane: torch.Tensor, xs: torch.Tensor,
+                                      ys: torch.Tensor, w: int, h: int,
+                                      bit_depth: int) -> torch.Tensor:
+    """Plain PyTorch twin of vvc/enc/rdo.py:86 build_ref_lines_device_rect
+    (and, at W = H, of :59 build_ref_lines_device): [N, 2H+2W+3] int32."""
+    ph, pw = plane.shape
+    mid = 1 << (bit_depth - 1)
+    xs = xs.long()
+    ys = ys.long()
+    kh = torch.arange(2 * h, device=plane.device)
+    kw = torch.arange(2 * w, device=plane.device)
+    lx = (xs - 1).clamp(0, pw - 1)
+    lyy = (ys[:, None] + kh[None, :]).clamp(0, ph - 1)
+    left = plane[lyy, lx[:, None]]
+    ty = (ys - 1).clamp(0, ph - 1)
+    txx = (xs[:, None] + kw[None, :]).clamp(0, pw - 1)
+    top = plane[ty[:, None], txx]
+    corner = plane[ty, lx]
+    left0 = left[:, :1]
+    top = torch.where((ys > 0)[:, None], top,
+                      torch.where((xs > 0)[:, None], left0,
+                                  torch.full_like(top, mid)))
+    corner = torch.where(ys > 0, corner,
+                         torch.where(xs > 0, left0[:, 0],
+                                     torch.full_like(corner, mid)))
+    left = torch.where((xs > 0)[:, None], left,
+                       torch.where((ys > 0)[:, None], top[:, :1],
+                                   torch.full_like(left, mid)))
+    return torch.cat([left.flip(1), corner[:, None], top, top[:, -1:],
+                      top[:, -1:]], dim=1).to(torch.int32)
 
 
 def build_ref_lines_device_plain(plane: torch.Tensor, xs: torch.Tensor,
                                  ys: torch.Tensor, size: int,
                                  bit_depth: int) -> torch.Tensor:
     """Plain PyTorch twin of vvc/enc/rdo.py:59 build_ref_lines_device."""
-    h, w = plane.shape
-    s = size
-    mid = 1 << (bit_depth - 1)
-    xs = xs.long()
-    ys = ys.long()
-    k = torch.arange(2 * s, device=plane.device)
-    lx = (xs - 1).clamp(0, w - 1)
-    lyy = (ys[:, None] + k[None, :]).clamp(0, h - 1)
-    left = plane[lyy, lx[:, None]]
-    ty = (ys - 1).clamp(0, h - 1)
-    txx = (xs[:, None] + k[None, :]).clamp(0, w - 1)
-    top = plane[ty[:, None], txx]
-    corner = plane[ty, lx]
-    mid_t = torch.full_like(top, mid)
-    top = torch.where((ys > 0)[:, None], top,
-                      torch.where((xs > 0)[:, None], left[:, :1], mid_t))
-    corner = torch.where(ys > 0, corner,
-                         torch.where(xs > 0, left[:, 0], mid_t[:, 0]))
-    left = torch.where((xs > 0)[:, None], left,
-                       torch.where((ys > 0)[:, None], top[:, :1], mid_t))
-    return torch.cat([left.flip(1), corner[:, None], top, top[:, -1:],
-                      top[:, -1:]], dim=1).to(torch.int32)
+    return build_ref_lines_device_rect_plain(plane, xs, ys, size, size,
+                                             bit_depth)
 
 
-def _ref_lines_cuda(plane, xs, ys, size: int, bit_depth: int):
-    ops.check_cuda_i32("ref_lines", plane, xs, ys)
-    h, w = plane.shape
+def _ref_lines_cuda(plane, xs, ys, w: int, h: int, bit_depth: int):
+    name = "ref_lines" if w == h else "ref_lines_rect"
+    ops.check_cuda_i32(name, plane, xs, ys)
+    ph, pw = plane.shape
     n = xs.shape[0]
     if ys.shape != (n,):
-        raise ValueError("ref_lines: xs and ys must be [N]")
-    out = torch.empty((n, 4 * size + 3), dtype=torch.int32,
+        raise ValueError(f"{name}: xs and ys must be [N]")
+    out = torch.empty((n, 2 * h + 2 * w + 3), dtype=torch.int32,
                       device=plane.device)
-    fn = ops.lib("ref_lines").ref_lines_launch
+    lib = ops.lib(name)
+    if w == h:
+        fn = lib.ref_lines_launch
+        args = (w,)
+    else:
+        fn = lib.ref_lines_rect_launch
+        args = (w, h)
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * (2 + len(args))
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    err = fn(plane.data_ptr(), h, w, xs.data_ptr(), ys.data_ptr(), n, size,
-             bit_depth, out.data_ptr(), ops.stream_ptr(plane))
-    ops.launched("ref_lines", err)
+    err = fn(plane.data_ptr(), ph, pw, xs.data_ptr(), ys.data_ptr(), n,
+             *args, bit_depth, out.data_ptr(), ops.stream_ptr(plane))
+    ops.launched(name, err)
     return out
 
 
@@ -187,16 +202,33 @@ def build_ref_lines_device(plane: torch.Tensor, xs: torch.Tensor,
     [N, 4S+3] int32.  CUDA tensor → csrc/ref_lines.cu; CPU tensor or
     `ops.plain()` → build_ref_lines_device_plain."""
     if ops.use_kernel(plane):
-        return _ref_lines_cuda(plane, xs, ys, size, bit_depth)
+        return _ref_lines_cuda(plane, xs, ys, size, size, bit_depth)
     return build_ref_lines_device_plain(plane, xs, ys, size, bit_depth)
+
+
+def build_ref_lines_device_rect(plane: torch.Tensor, xs: torch.Tensor,
+                                ys: torch.Tensor, w: int, h: int,
+                                bit_depth: int) -> torch.Tensor:
+    """Rect twin of build_ref_lines_device: [N, 2H+2W+3] int32 lines (left
+    2H reversed, corner, top 2W, 2 pads) of W×H blocks at (xs, ys).  Port
+    of vvc/enc/rdo.py:86.  CUDA tensor → csrc/ref_lines.cu (entry
+    `ref_lines_rect`, W ≠ H); CPU tensor or `ops.plain()` →
+    build_ref_lines_device_rect_plain."""
+    if w == h:
+        return build_ref_lines_device(plane, xs, ys, w, bit_depth)
+    if ops.use_kernel(plane):
+        return _ref_lines_cuda(plane, xs, ys, w, h, bit_depth)
+    return build_ref_lines_device_rect_plain(plane, xs, ys, w, h, bit_depth)
 
 
 def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
                 bit_depth: int = 8, try_mts: bool = False,
                 lossless: bool = False, try_mip: bool = False,
-                try_lfnst: bool = False, h: int | None = None):
-    """[N,S,S] originals + [N,4S+3] refs → (best_cost [N] f32, best_mode
-    [N] i32, best_mts [N] i32, best_lfnst [N] i32).
+                try_lfnst: bool = False, h: int | None = None,
+                mid: bool = False, vmapped: bool = False):
+    """[N,H,W] originals + [N,2H+2W+3] refs → (best_cost [N] f32,
+    best_mode [N] i32, best_mts [N] i32, best_lfnst [N] i32); W = size,
+    H = h (default: square).
 
     SATD prescreen over the 67 modes (+ the 9 MIP modes 67..75 when
     try_mip) + √λ·mode bits.  Lossless (transquant bypass): that is the
@@ -204,13 +236,19 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     full RD on the stable top-3 shortlist with DCT2 (stage A), then the
     four other MTS pairs on the winning mode when try_mts (stage B, strict
     `<`), then LFNST 1 and 2 on the winner's DCT2 coefficients when
-    try_lfnst (stage C, strict `<`; a win resets the MTS choice to 0)."""
-    if h is not None and h != size:
-        raise _slice2c("rectangular (MTT) shapes")
+    try_lfnst (stage C, strict `<`; a win resets the MTS choice to 0).
+    h != size is a rect MTT shape (wide-angle predictor; MIP and LFNST are
+    square-only and must be off, as in vvc).  mid, vmapped: the blocks are
+    a TT mid plane's / the search runs as vvc's vmapped tile program,
+    whose SSE sums XLA orders differently (sse_order)."""
+    w = size
+    h = w if h is None else h
+    if w != h and (try_mip or try_lfnst):
+        raise ValueError("eval_blocks: MIP and LFNST are square-only")
     lam, sqrt_lam = lambda_f32(qp)
     n = orig.shape[0]
     dev = orig.device
-    preds = predict_all_modes_batch(refs, size, bit_depth)      # [N,67,S,S]
+    preds = predict_all_modes_batch_rect(refs, w, h, bit_depth)  # [N,67,H,W]
     satd = satd_batch(preds, orig)                              # [N,67]
     mode_bits_np = _MODE_BITS
     mip = None
@@ -230,23 +268,25 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     # lax.top_k(-pre_cost, 3) keeps the lower index on a tie: a stable
     # ascending sort does the same (torch.topk promises no tie order)
     short = torch.sort(pre_cost, dim=1, stable=True).indices[:, :RD_SHORTLIST]
-    cand = _gather_modes(preds, mip, short)                     # [N,K,S,S]
-    resi = (orig[:, None] - cand).reshape(-1, size, size)
+    cand = _gather_modes(preds, mip, short)                     # [N,K,H,W]
+    resi = (orig[:, None] - cand).reshape(-1, h, w)
     extra = mode_bits[short].reshape(-1) + np.float32(_MTS_BITS[0])
-    cost_a = _rd_pass(resi, cand.reshape(-1, size, size), MTS_TR[0], qp,
-                      lam, extra, bit_depth).reshape(n, RD_SHORTLIST)
+    cost_a = _rd_pass(resi, cand.reshape(-1, h, w), MTS_TR[0], qp,
+                      lam, extra, bit_depth, "midA" if mid else "A",
+                      vmapped).reshape(n, RD_SHORTLIST)
     best_cost, best_k = _min_argmin(cost_a)
     best_k = best_k.long()
     best_mode = short.gather(1, best_k[:, None])[:, 0].to(torch.int32)
     best_mts = torch.zeros_like(best_mode)
     ar = torch.arange(n, device=dev)
-    bp = cand[ar, best_k]                                       # [N,S,S]
+    bp = cand[ar, best_k]                                       # [N,H,W]
     br = orig - bp
     bbits = mode_bits[best_mode.long()]
     if try_mts:
         for mi in range(1, len(MTS_TR)):
             c_mi = _rd_pass(br, bp, MTS_TR[mi], qp, lam,
-                            bbits + np.float32(_MTS_BITS[mi]), bit_depth)
+                            bbits + np.float32(_MTS_BITS[mi]), bit_depth,
+                            "midB" if mid else "B", vmapped)
             better = c_mi < best_cost
             best_cost = torch.where(better, c_mi, best_cost)
             best_mts = torch.where(better, torch.full_like(best_mts, mi),
@@ -276,12 +316,12 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
 
 
 def _gather_modes(preds: torch.Tensor, mip, short: torch.Tensor):
-    """Predictions of the shortlisted modes [N,K,S,S]: angular/DC/planar
-    from preds [N,67,S,S], MIP (mode ≥ 67) from mip [N,9,S,S] — without
+    """Predictions of the shortlisted modes [N,K,H,W]: angular/DC/planar
+    from preds [N,67,H,W], MIP (mode ≥ 67) from mip [N,9,S,S] — without
     concatenating the two mode stacks."""
     n, k = short.shape
-    s = preds.shape[-1]
-    idx = short[:, :, None, None].expand(n, k, s, s)
+    h, w = preds.shape[-2:]
+    idx = short[:, :, None, None].expand(n, k, h, w)
     cand = torch.gather(preds, 1, idx.clamp(max=MIP_MODE_BASE - 1))
     if mip is not None:
         cand = torch.where(idx >= MIP_MODE_BASE,
@@ -290,18 +330,62 @@ def _gather_modes(preds: torch.Tensor, mip, short: torch.Tensor):
     return cand
 
 
-def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int):
-    """RD cost [M] f32 of coding residuals resi [M,S,S] over predictions
+def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int,
+             site: str = "A", vmapped: bool = False):
+    """RD cost [M] f32 of coding residuals resi [M,H,W] over predictions
     pred with transform pair tr: fwd transform → quant + level rate +
     dequant → inverse → SSE, then sse + λ·(rate + extra_bits) rounded once
-    (vvc/enc/rdo.py rd_pass)."""
+    (vvc/enc/rdo.py rd_pass).  site, vmapped: which of the program's SSE
+    sums this is (sse_order)."""
     th, tv = tr
     coeff = fwd_transform_batch(resi, bit_depth, th, tv)
     rate, deq = quant_rate(coeff, qp, bit_depth)
     rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
     rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
-    sse = _sse_f32(rec - pred - resi)
+    sse = _sse_f32(rec - pred - resi,
+                   **sse_order(*resi.shape[1:], site, vmapped))
     return _fma_f32(lam, rate + extra_bits, sse)
+
+
+def sse_order(h: int, w: int, site: str = "A",
+              vmapped: bool = False) -> dict:
+    """The order of vvc's float32 SSE sum over an H×W luma block at one
+    site of its search program (used only at or above 2^24, below which
+    every order gives the exact integer).  site: "A" (stage A of
+    eval_blocks), "B" (stage B), "midA"/"midB" (the same stages on a TT
+    mid plane), "isp" (an ISP sub-TU); vmapped: vvc's vmapped tile
+    program.  Read from the x86 object code XLA-CPU emits for the MTT
+    search program (jax 0.9.0, AVX2; the backend turns each row's
+    vectorised adds into one chain of FMAs, so the IR's association is not
+    the one that runs):
+      * row lanes at 8×8 (`_sse_f32`'s default) and where
+        `_RECT_SSE_ROWS` lists the shape;
+      * 32 wide in stage A (squares too): the row's parts added onto the
+        running total in the order P0, P2, P3, P1;
+      * 16 and 32 wide on a mid plane's stage A in the vmapped program:
+        the tail order;
+      * otherwise the default order (windows at a side of 64)."""
+    if (h, w) in _RECT_SSE_ROWS[site]:
+        return {"row_lanes": True}
+    if site == "midA" and vmapped and w in (16, 32):
+        return {"tail": True}
+    if site in ("A", "midA") and w == 32 and h < 64:
+        return {"part_order": (0, 2, 3, 1)}
+    return {}           # _sse_f32's default: row lanes at 8×8
+
+
+# The rect (H, W) whose SSE XLA-CPU vectorises along the rows (row
+# lanes), per site of vvc's search program (the 8- and 4-wide blocks, and
+# in the ISP stage also the 8×16 sub-TU and the 4-row sub-TUs of 8 and 16
+# columns); every other rect shape is summed in the default order.
+_RECT_SSE_ROWS = {
+    "A": {(16, 8), (32, 8)},
+    "B": {(16, 8), (32, 8)},
+    "midA": {(16, 8)},
+    "midB": {(16, 8)},
+    "isp": {(8, 4), (16, 4), (32, 4), (16, 8), (32, 8), (8, 16), (4, 8),
+            (4, 16)},
+}
 
 
 def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None,
@@ -320,7 +404,7 @@ def _sse_f32(d: torch.Tensor, row_lanes: bool | None = None,
     if bool(big.any()):
         dd = d[big].to(torch.float32)
         if row_lanes is None:
-            row_lanes = d.shape[-1] == 8
+            row_lanes = d.shape[-1] == 8 and d.shape[-2] == 8
         out[big] = xla_block_sum(dd * dd, row_lanes=row_lanes, **order)
     return out
 
@@ -414,42 +498,170 @@ def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
     return torch.argmin(cost, dim=1).to(torch.int32)
 
 
+# float32 bits of E = 2^((qp−12)/3) for qp 0..63 as XLA computes it (λ is
+# float32(0.57·E)): the ISP stage's λ·2.5 is folded by XLA into
+# E·float32(1.425), one rounding from E, not from λ
+EXP2_F32_BITS = (
+    0x3d800000, 0x3da14518, 0x3dcb2ff5, 0x3e000000, 0x3e214518, 0x3e4b2ff5,
+    0x3e800000, 0x3ea14518, 0x3ecb2ff5, 0x3f000000, 0x3f214518, 0x3f4b2ff5,
+    0x3f800000, 0x3fa14518, 0x3fcb2ff5, 0x40000000, 0x40214518, 0x404b2ff5,
+    0x40800000, 0x40a14518, 0x40cb2ff5, 0x41000000, 0x41214518, 0x414b2ff5,
+    0x41800000, 0x41a14518, 0x41cb2ff5, 0x42000000, 0x42214518, 0x424b2ff5,
+    0x42800000, 0x42a14518, 0x42cb2ff5, 0x43000000, 0x43214518, 0x434b2ff5,
+    0x43800000, 0x43a14518, 0x43cb2ff5, 0x44000000, 0x44214518, 0x444b2ff5,
+    0x44800000, 0x44a14518, 0x44cb2ff5, 0x45000000, 0x45214518, 0x454b2ffc,
+    0x45800000, 0x45a14513, 0x45cb2ff6, 0x46000004, 0x46214518, 0x464b2fef,
+    0x46800000, 0x46a1451d, 0x46cb2ff6, 0x46fffff8, 0x47214518, 0x474b2ffc,
+    0x47800000, 0x47a14513, 0x47cb2ff6, 0x48000004)
+
+# approximate ISP signalling cost: isp flag + direction + per-sub cbf bins
+_ISP_BITS = 2.5
+_ISP_CBF_BITS = 0.8
+
+
+def _isp_bits_f32(qp: int) -> np.float32:
+    """λ·_ISP_BITS as vvc's program computes it: E·float32(0.57·2.5)."""
+    e = np.array([EXP2_F32_BITS[qp]], dtype=np.uint32).view(np.float32)[0]
+    return np.float32(e * (np.float32(0.57) * np.float32(_ISP_BITS)))
+
+
+def eval_isp_dir(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                 w: int, h: int, modes: torch.Tensor, qp: int,
+                 bit_depth: int, direction: int) -> torch.Tensor:
+    """RD cost [N] f32 of coding each W×H block at (xs, ys) with ISP in
+    `direction`, using its (already decided) intra mode.  Port of
+    vvc/enc/rdo.py:126: every sub-TU is predicted from *original*
+    neighbours at its own position (square sub-TUs: ref_lines and
+    intra_pred_one; rect: ref_lines_rect and intra_pred_one_rect), coded
+    with its implicit DST7/DCT2 pair (transform, quant_rate, inverse), and
+    its cost accumulated as XLA's program does it: t = fma(λ, rate + 0.8,
+    t + sse) sub-TU by sub-TU (the first: fma(λ, rate + 0.8, sse)), then
+    t + E·1.425 (λ·2.5 folded, see _isp_bits_f32)."""
+    from vvc_torch.kernels.isp import isp_partitions, isp_tr_types
+    lam, _ = lambda_f32(qp)
+    cbf = np.float32(_ISP_CBF_BITS)
+    cost = None
+    for (xo, yo, sw, sh) in isp_partitions(w, h, direction):
+        sxs, sys_ = xs + xo, ys + yo
+        if sw == sh:
+            refs = build_ref_lines_device(plane, sxs, sys_, sw, bit_depth)
+            pred = predict_modes_batch(refs, modes, sw, bit_depth)
+        else:
+            refs = build_ref_lines_device_rect(plane, sxs, sys_, sw, sh,
+                                               bit_depth)
+            pred = predict_modes_batch_rect(refs, modes, sw, sh, bit_depth)
+        oy = sys_.long()[:, None, None] + torch.arange(
+            sh, device=plane.device)[None, :, None]
+        ox = sxs.long()[:, None, None] + torch.arange(
+            sw, device=plane.device)[None, None, :]
+        resi = plane[oy, ox] - pred
+        th, tv = isp_tr_types(sw, sh)
+        coeff = fwd_transform_batch(resi, bit_depth, th, tv)
+        rate, deq = quant_rate(coeff, qp, bit_depth)
+        rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
+        sse = _sse_f32(rec_resi - resi, **sse_order(sh, sw, "isp"))
+        acc = sse if cost is None else cost + sse
+        cost = _fma_f32(lam, rate + cbf, acc)
+    return cost + _isp_bits_f32(qp)
+
+
 def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                     ny: int, nx: int, mts_enabled: bool = True,
                     lossless: bool = False, lfnst_enabled: bool = True,
                     chroma=None, h: int | None = None,
                     isp_enabled: bool = False, vmapped: bool = False):
-    """Whole-frame single-size evaluation: plane [H,W] int32 →
-    (cost [ny,nx] f32, mode, mts, lfnst, chroma_mode, isp [ny,nx] i32).
-    chroma: optional (cb, cr, ds) planes for the device chroma decision;
-    vmapped: take the chroma sum orders of vvc's vmapped program."""
-    if isp_enabled and not lossless:
-        raise _slice2c("ISP")
+    """Whole-frame single-shape evaluation of W×H blocks (W = size, H = h,
+    default square): plane [H,W] int32 → (cost [ny,nx] f32, mode, mts,
+    lfnst, chroma_mode, isp [ny,nx] i32).  Port of vvc/enc/rdo.py:314.
+    chroma: optional (cb, cr, ds) planes for the device chroma decision
+    (square shapes only, as in vvc); vmapped: take the chroma sum orders of
+    vvc's vmapped program.  Rect shapes run with MIP, LFNST and the chroma
+    decision off; ISP (isp_enabled, lossy, both sides 8..32) tries both
+    directions on the winning non-MIP mode and clears MTS and LFNST where
+    it wins."""
     s = size
-    if h is not None and h != s:
-        raise _slice2c("rectangular (MTT) shapes")
+    bh = s if h is None else h
     dev = plane.device
-    blocks = (plane[:ny * s, :nx * s]
-              .reshape(ny, s, nx, s).permute(0, 2, 1, 3).reshape(-1, s, s)
+    blocks = (plane[:ny * bh, :nx * s]
+              .reshape(ny, bh, nx, s).permute(0, 2, 1, 3).reshape(-1, bh, s)
               .contiguous())
-    ys = (torch.arange(ny, dtype=torch.int32, device=dev) * s
+    ys = (torch.arange(ny, dtype=torch.int32, device=dev) * bh
           ).repeat_interleave(nx)
     xs = (torch.arange(nx, dtype=torch.int32, device=dev) * s).repeat(ny)
-    refs = build_ref_lines_device(plane, xs, ys, s, bit_depth)
-    try_mts = (not lossless) and mts_enabled and 8 <= s <= 32   # spec limit 32
-    try_mip = (not lossless) and mip_allowed(s)
-    try_lfnst = (not lossless) and lfnst_enabled and lfnst_allowed(s)
+    square = bh == s
+    refs = build_ref_lines_device_rect(plane, xs, ys, s, bh, bit_depth)
+    try_mts = ((not lossless) and mts_enabled
+               and 8 <= s <= 32 and 8 <= bh <= 32)      # spec limit 32
+    try_mip = (not lossless) and square and mip_allowed(s)
+    try_lfnst = (not lossless) and square and lfnst_enabled and \
+        lfnst_allowed(s)
     cost, mode, mts, lfnst = eval_blocks(blocks, refs, s, qp, bit_depth,
                                          try_mts, lossless, try_mip,
-                                         try_lfnst)
-    z = torch.zeros_like(mode)
-    cmode = z
-    if chroma is not None:
+                                         try_lfnst, h=bh, vmapped=vmapped)
+    isp = torch.zeros_like(mode)
+    if isp_enabled and not lossless and 8 <= s <= 32 and 8 <= bh <= 32:
+        lam, _ = lambda_f32(qp)
+        mode_ok = mode < 67                       # no ISP with MIP
+        m = torch.where(mode_ok, mode, 0)
+        mbits = torch.from_numpy(_MODE_BITS).to(dev)[m.long()]
+        lam_bits = lam * mbits          # λ·bits, read twice: not contracted
+        for d in (1, 2):
+            c_isp = eval_isp_dir(plane, xs, ys, s, bh, m, qp, bit_depth,
+                                 d) + lam_bits
+            better = mode_ok & (c_isp < cost)
+            cost = torch.where(better, c_isp, cost)
+            isp = torch.where(better, torch.full_like(isp, d), isp)
+        mts = torch.where(isp > 0, 0, mts)
+        lfnst = torch.where(isp > 0, 0, lfnst)
+    cmode = torch.zeros_like(mode)
+    if chroma is not None and square:
         cb, cr, ds = chroma
         cmode = eval_chroma_modes(cb, cr, ds, xs, ys, s, mode, bit_depth,
                                   vmapped)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
-            lfnst.reshape(ny, nx), cmode.reshape(ny, nx), z.reshape(ny, nx))
+            lfnst.reshape(ny, nx), cmode.reshape(ny, nx),
+            isp.reshape(ny, nx))
+
+
+def eval_mid_plane(plane: torch.Tensor, desc, qp: int, bit_depth: int,
+                   lossless: bool, lfnst_enabled: bool,
+                   vmapped: bool = False):
+    """Leaf-cost plane for TT middle children.  Port of vvc/enc/rdo.py:398:
+    desc ('TH', w) → (w, 16) blocks at (x = k·w, y = 8 + 32·r); ('TV', h)
+    → (16, h) blocks at (x = 8 + 32·k, y = r·h).  Returns the 6-tuple of
+    eval_size_plane (chroma decision and ISP off: TT mid leaves code
+    chroma as DM).  vmapped: take the SSE orders of vvc's vmapped
+    program."""
+    ph, pw = plane.shape
+    kind, s = desc
+    dev = plane.device
+    ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)
+    if kind == "TH":
+        bw, bh = s, 16
+        ny, nx = ph // 32, pw // bw
+        ys = (ar(ny) * 32 + 8).repeat_interleave(nx)
+        xs = (ar(nx) * bw).repeat(ny)
+    else:
+        bw, bh = 16, s
+        ny, nx = ph // s, pw // 32
+        ys = (ar(ny) * s).repeat_interleave(nx)
+        xs = (ar(nx) * 32 + 8).repeat(ny)
+    oy = ys.long()[:, None, None] + ar(bh).long()[None, :, None]
+    ox = xs.long()[:, None, None] + ar(bw).long()[None, None, :]
+    blocks = plane[oy, ox].contiguous()
+    square = bw == bh
+    refs = build_ref_lines_device_rect(plane, xs, ys, bw, bh, bit_depth)
+    try_mts = (not lossless) and 8 <= bw <= 32 and 8 <= bh <= 32
+    try_mip = (not lossless) and square and mip_allowed(bw)
+    try_lfnst = ((not lossless) and square and lfnst_enabled
+                 and lfnst_allowed(bw))
+    cost, mode, mts, lfnst = eval_blocks(blocks, refs, bw, qp, bit_depth,
+                                         try_mts, lossless, try_mip,
+                                         try_lfnst, h=bh, mid=True,
+                                         vmapped=vmapped)
+    z = torch.zeros_like(mode)
+    return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
+            lfnst.reshape(ny, nx), z.reshape(ny, nx), z.reshape(ny, nx))
 
 
 def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
@@ -467,8 +679,13 @@ def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                                             lfnst_enabled=lfnst,
                                             chroma=chroma, h=bh,
                                             isp_enabled=isp, vmapped=vmapped)
-    if _tt_descriptors(sizes):
-        raise _slice2c("TT middle-child planes (MTT)")
+    for desc in _tt_descriptors(sizes):
+        kind, s = desc
+        ny = (h // 32, h // s)[kind == "TV"]
+        nx = (w // s, w // 32)[kind == "TV"]
+        if ny and nx:
+            out[desc] = eval_mid_plane(plane, desc, qp, bit_depth, lossless,
+                                       lfnst, vmapped)
     return out
 
 
@@ -486,23 +703,18 @@ def _pack_results(out, sizes):
     return torch.cat(parts)
 
 
-def _check_options(lossless, isp):
-    if isp and not lossless:
-        raise _slice2c("ISP")
-
-
 def eval_all_sizes(planes_vec: torch.Tensor, sizes: tuple, qp, bit_depth: int,
                    w: int, h: int, lossless: bool = False,
                    lfnst: bool = True, with_chroma: bool = False,
                    isp: bool = False) -> torch.Tensor:
-    """All candidate sizes of one frame → ONE packed int32 vector on the
+    """All candidate shapes of one frame (squares, and with the MTT lattice
+    its rectangles and TT mid planes) → ONE packed int32 vector on the
     planes' device.  planes_vec: pack_planes(y[, cb, cr]) as a tensor.
     Unpack with unpack_results."""
-    _check_options(lossless, isp)
     y, cb, cr = _split_planes(planes_vec, w, h, with_chroma)
     return _pack_results(_eval_all_sizes_impl(y, sizes, int(qp), bit_depth,
-                                              w, h, lossless, lfnst, cb, cr),
-                         sizes)
+                                              w, h, lossless, lfnst, cb, cr,
+                                              isp), sizes)
 
 
 def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
@@ -513,13 +725,12 @@ def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
     """[F] frames (or tile columns) → [F, per-frame packed length] int32.
     The JAX program's vmap over frames is a frame loop here; with F > 1 its
     chroma sums take the vmapped program's orders (eval_chroma_modes)."""
-    _check_options(lossless, isp)
     y, cb, cr = _split_planes(planes_vec, w, h, with_chroma, f)
     return torch.stack([
         _pack_results(_eval_all_sizes_impl(
             y[i], sizes, int(qp), bit_depth, w, h, lossless, lfnst,
             None if cb is None else cb[i], None if cr is None else cr[i],
-            vmapped=f > 1), sizes)
+            isp, vmapped=f > 1), sizes)
         for i in range(f)])
 
 
@@ -550,8 +761,6 @@ def rdo_partition_dispatch(y_plane, qp: int, bit_depth: int = 8,
     rdo_partition_finish."""
     h, w = y_plane.shape
     assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
-    if mtt:
-        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     with_chroma = chroma_planes is not None
     vec_dev = _to_device(pack_planes(y_plane, *(chroma_planes or (None, None))),
@@ -577,8 +786,6 @@ def rdo_partition_frames(y_planes, qp: int, bit_depth: int = 8,
     (split_map, leaf_map, leaves).  One upload and one transfer back."""
     h, w = y_planes[0].shape
     assert w % min_cu == 0 and h % min_cu == 0, "pad input to min-CU multiple"
-    if mtt:
-        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     nf = len(y_planes)
     with_chroma = chroma_planes is not None
@@ -608,8 +815,6 @@ def rdo_partition_tiled(y_plane: np.ndarray, tiles, qp: int,
     precomputed per-tile unpacked result dicts.  Returns frame-coordinate
     (split_map, leaf_map, leaves)."""
     h, w = y_plane.shape
-    if mtt:
-        raise _slice2c("MTT")
     shapes = _candidate_shapes(ctu_size, min_cu, mtt)
     widths = [tx1 - tx0 for tx0, tx1 in tiles]
     with_chroma = chroma_planes is not None

@@ -1,7 +1,7 @@
 """Adaptation Parameter Set (APS) — ALF parameter transport.
 
 Port of vvc/hls/aps.py, cut to the ALF APS writer (`write_aps_alf`) that
-lossy encode_sequence needs; the LMCS APS arrives with LMCS (slice 2c).
+lossy encode_sequence needs; the LMCS APS arrives with LMCS (slice 2d).
 
 TPU-native analog of the reference's APS handling
 (`VTM/source/Lib/EncoderLib/VLCWriter.cpp` → HLSWriter::codeAPS; spec

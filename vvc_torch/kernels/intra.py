@@ -864,3 +864,211 @@ def predict_modes_batch(c_batch: torch.Tensor, modes: torch.Tensor,
     if ops.use_kernel(c_batch):
         return _predict_one_cuda(c_batch, modes, size, bit_depth)
     return predict_modes_batch_plain(c_batch, modes, size, bit_depth)
+
+
+# ---------------------------------------------------------------------------
+# Rectangular blocks (the MTT lattice's shapes and the ISP sub-TUs): all
+# 67 modes per block, or one mode per block, with the wide-angle remap
+# folded into static tables
+# ---------------------------------------------------------------------------
+
+
+_EXT_MODES = tuple(range(DIA_IDX, 83))      # vertical family, wide included
+
+
+@lru_cache(maxsize=None)
+def _rect_row_tables(w: int, h: int):
+    """The 49-row tables of vvc/kernels/intra.py:822 predict_modes_batch_rect
+    (row r = extended vertical mode 34 + r): remap [67] (signaled mode →
+    remapped mode), the vertical family's 4-tap idx/co [49,4,H,W] and PDPC
+    W/I [49,H,W], diff [49] in the W×H geometry, and the horizontal
+    family's [49,4,W,H], [49,W,H], [49] in the transposed geometry."""
+    remap = np.array([wide_angle_remap(m, w, h) if m >= 2 else m
+                      for m in range(67)], dtype=np.int32)
+    vt = [angular_tables4_rect(w, h, vm) for vm in _EXT_MODES]
+    ht = [angular_tables4_rect(h, w, vm) for vm in _EXT_MODES]
+    vW, vI, vD = _stacked_pdpc(w, h, _EXT_MODES)
+    hW, hI, hD = _stacked_pdpc(h, w, _EXT_MODES)
+    return (remap, np.stack([t[0] for t in vt]), np.stack([t[1] for t in vt]),
+            vW, vI, vD, np.stack([t[0] for t in ht]),
+            np.stack([t[1] for t in ht]), hW, hI, hD)
+
+
+@lru_cache(maxsize=None)
+def _rect_device_tables(w: int, h: int, device: str):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
+                                  ).to(device)
+                 for a in _rect_row_tables(w, h))
+
+
+def _planar_dc_rect_plain(c: torch.Tensor, w: int, h: int):
+    """Planar and DC (+PDPC) of [N, 2H+2W+3] int32 lines → two [N,H,W]
+    int32 tensors, unclipped (vvc/kernels/intra.py:763)."""
+    log2w, log2h = int(np.log2(w)), int(np.log2(h))
+    n = c.shape[0]
+    left = c[:, :2 * h].flip(1)
+    top = c[:, 2 * h + 1:2 * h + 2 * w + 1]
+    xs = torch.arange(w, dtype=torch.int32, device=c.device)
+    ys = torch.arange(h, dtype=torch.int32, device=c.device)
+    below_left = left[:, h][:, None, None]
+    above_right = top[:, w][:, None, None]
+    pred_v = ((h - 1 - ys)[None, :, None] * top[:, None, :w]
+              + (ys + 1)[None, :, None] * below_left) << log2w
+    pred_h = ((w - 1 - xs)[None, None, :] * left[:, :h, None]
+              + (xs + 1)[None, None, :] * above_right) << log2h
+    planar = (pred_v + pred_h + w * h) >> (log2w + log2h + 1)
+    if w == h:
+        dc = (top[:, :w].sum(1) + left[:, :h].sum(1) + w) >> (log2w + 1)
+    elif w > h:
+        dc = (top[:, :w].sum(1) + (w >> 1)) >> log2w
+    else:
+        dc = (left[:, :h].sum(1) + (h >> 1)) >> log2h
+    dc_pred = dc[:, None, None].expand(n, h, w)
+    scale = (log2w + log2h - 2) >> 2
+    wl = (32 >> ((2 * xs) >> scale).clamp(max=31))[None, None, :]
+    wt = (32 >> ((2 * ys) >> scale).clamp(max=31))[None, :, None]
+    lcol = left[:, :h, None]
+    trow = top[:, None, :w]
+
+    def pdpc(p):
+        return (wl * lcol + wt * trow + (64 - wl - wt) * p + 32) >> 6
+
+    return pdpc(planar), pdpc(dc_pred)
+
+
+def _reversed_line_rect(c: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """ct: the rect line reversed about its corner, padded like vvc's."""
+    head = c[:, :2 * h + 2 * w + 1].flip(1)
+    return torch.cat([head, head[:, -1:], head[:, -1:]], dim=1)
+
+
+def _angular_pdpc(p, line, W, I, diff, hv: int):
+    """Angular PDPC of v-space predictions p [..., hv, wv] from `line`."""
+    ref = line.gather(1, I.reshape(I.shape[0], -1).long()).reshape(I.shape)
+    corner = line[:, 2 * hv].reshape((-1,) + (1,) * (p.dim() - 1))
+    return p + torch.where(diff.bool(), (W * (ref - corner)) >> 6,
+                           (W * (ref - p) + 32) >> 6)
+
+
+def predict_all_modes_batch_rect_plain(c_batch: torch.Tensor, w: int, h: int,
+                                       bit_depth: int = 8) -> torch.Tensor:
+    """Plain twin of vvc/kernels/intra.py:799 predict_all_modes_batch_rect:
+    [N, 2H+2W+3] int32 lines → [N, 67, H, W] int32 — the one-mode twin
+    below at every mode of every block (vvc's stacked tables hold the same
+    rows, grouped by family)."""
+    n = c_batch.shape[0]
+    modes = torch.arange(67, dtype=torch.int32,
+                         device=c_batch.device).repeat(n)
+    out = predict_modes_batch_rect_plain(c_batch.repeat_interleave(67, 0),
+                                         modes, w, h, bit_depth)
+    return out.reshape(n, 67, h, w)
+
+
+def predict_modes_batch_rect_plain(c_batch: torch.Tensor,
+                                   modes: torch.Tensor, w: int, h: int,
+                                   bit_depth: int = 8) -> torch.Tensor:
+    """Plain twin of vvc/kernels/intra.py:822 predict_modes_batch_rect:
+    [N, 2H+2W+3] int32 lines + [N] int32 modes → [N,H,W] int32.  Both
+    families are computed from each block's own table row (clipped to
+    0..48 as vvc clips it) and selected by the remapped family.  A mode
+    outside 0..66 predicts as the nearest of them, as the kernel does."""
+    n = c_batch.shape[0]
+    (remap, vi, vc, vW, vI, vD, hi, hc, hW, hI,
+     hD) = _rect_device_tables(w, h, str(c_batch.device))
+    c = c_batch.to(torch.int32)
+    modes = modes.to(torch.int64).clamp(0, 66)
+    planar, dc_pred = _planar_dc_rect_plain(c, w, h)
+    rm = remap.long()[modes]
+    rv = (rm - DIA_IDX).clamp(0, 48)
+    rh = (68 - rm - DIA_IDX).clamp(0, 48)
+
+    def row(line, rows, ti, tc, tW, tI, tD, wv, hv):
+        g = line.gather(1, ti[rows].reshape(n, -1).long()).reshape(
+            n, 4, hv, wv)
+        p = ((tc[rows] * g).sum(1) + 32) >> 6
+        return _angular_pdpc(p, line, tW[rows], tI[rows],
+                             tD[rows][:, None, None], hv)
+
+    pv = row(c, rv, vi, vc, vW, vI, vD, w, h)
+    ph = row(_reversed_line_rect(c, w, h), rh, hi, hc, hW, hI, hD, h,
+             w).transpose(1, 2)
+    ang = torch.where((rm >= DIA_IDX)[:, None, None], pv, ph)
+    m3 = modes[:, None, None]
+    out = torch.where(m3 == PLANAR_IDX, planar,
+                      torch.where(m3 == DC_IDX, dc_pred, ang))
+    return out.clamp(0, (1 << bit_depth) - 1).to(torch.int32)
+
+
+def _rect_args(name: str, c_batch: torch.Tensor, w: int, h: int):
+    n = c_batch.shape[0]
+    if c_batch.dim() != 2 or c_batch.shape[1] != 2 * h + 2 * w + 3:
+        raise ValueError(f"{name}: refs {tuple(c_batch.shape)} are not "
+                         f"[N, {2 * h + 2 * w + 3}]")
+    sides = (4, 8, 16, 32, 64)
+    if w not in sides or h not in sides:
+        raise ValueError(f"{name}: unsupported block {w}x{h}")
+    return n, _rect_device_tables(w, h, str(c_batch.device))
+
+
+def _predict_all_rect_cuda(c_batch: torch.Tensor, w: int, h: int,
+                           bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("intra_pred_all_rect", c_batch)
+    n, tabs = _rect_args("intra_pred_all_rect", c_batch, w, h)
+    out = torch.empty((n, 67, h, w), dtype=torch.int32,
+                      device=c_batch.device)
+    fn = ops.lib("intra_pred_all_rect").intra_pred_all_rect_launch
+    # refs, n, w, h, bit depth, the 11 tables, out, stream
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * (len(tabs) + 2))
+    fn.restype = ctypes.c_int
+    err = fn(c_batch.data_ptr(), n, w, h, bit_depth,
+             *(t.data_ptr() for t in tabs), out.data_ptr(),
+             ops.stream_ptr(c_batch))
+    ops.launched("intra_pred_all_rect", err)
+    return out
+
+
+def predict_all_modes_batch_rect(c_batch: torch.Tensor, w: int, h: int,
+                                 bit_depth: int = 8) -> torch.Tensor:
+    """[N, 2H+2W+3] rect reference lines → [N, 67, H, W] int32 predictions
+    for every signaled mode (wide-angle remap folded into the tables).
+    Port of vvc/kernels/intra.py:799; W == H is predict_all_modes_batch.
+    CUDA tensor → `intra_pred_all_rect` (vvc_torch/csrc/intra_pred.cu);
+    CPU tensor or `ops.plain()` → predict_all_modes_batch_rect_plain."""
+    if w == h:
+        return predict_all_modes_batch(c_batch, w, bit_depth)
+    if ops.use_kernel(c_batch):
+        return _predict_all_rect_cuda(c_batch, w, h, bit_depth)
+    return predict_all_modes_batch_rect_plain(c_batch, w, h, bit_depth)
+
+
+def _predict_one_rect_cuda(c_batch: torch.Tensor, modes: torch.Tensor,
+                           w: int, h: int, bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("intra_pred_one_rect", c_batch, modes)
+    n, tabs = _rect_args("intra_pred_one_rect", c_batch, w, h)
+    if modes.shape != (n,):
+        raise ValueError("intra_pred_one_rect: modes must be [N]")
+    out = torch.empty((n, h, w), dtype=torch.int32, device=c_batch.device)
+    fn = ops.lib("intra_pred_one_rect").intra_pred_one_rect_launch
+    # refs, modes, n, w, h, bit depth, the 11 tables, out, stream
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * (len(tabs) + 2))
+    fn.restype = ctypes.c_int
+    err = fn(c_batch.data_ptr(), modes.data_ptr(), n, w, h, bit_depth,
+             *(t.data_ptr() for t in tabs), out.data_ptr(),
+             ops.stream_ptr(c_batch))
+    ops.launched("intra_pred_one_rect", err)
+    return out
+
+
+def predict_modes_batch_rect(c_batch: torch.Tensor, modes: torch.Tensor,
+                             w: int, h: int,
+                             bit_depth: int = 8) -> torch.Tensor:
+    """[N, 2H+2W+3] rect reference lines + [N] int32 modes → [N, H, W]
+    int32, each block's own mode (the ISP sub-TUs of the RD search).  Port
+    of vvc/kernels/intra.py:822.  CUDA tensor → `intra_pred_one_rect`
+    (vvc_torch/csrc/intra_pred.cu); CPU tensor or `ops.plain()` →
+    predict_modes_batch_rect_plain."""
+    if ops.use_kernel(c_batch):
+        return _predict_one_rect_cuda(c_batch, modes, w, h, bit_depth)
+    return predict_modes_batch_rect_plain(c_batch, modes, w, h, bit_depth)

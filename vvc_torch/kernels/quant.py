@@ -136,19 +136,24 @@ def dequant_batch(level: torch.Tensor, qp: int,
 # ---------------------------------------------------------------------------
 # Float32 block sums in the order XLA-CPU's fused RDO program uses.
 #
-# vvc's `jnp.sum(x, axis=(1, 2))` over [M, S, S] float32 inside the jitted
-# eval_blocks is a reduction LLVM vectorises 8 lanes wide (reassociation
+# vvc's `jnp.sum(x, axis=(1, 2))` over [M, H, W] float32 inside the jitted
+# search is a reduction LLVM vectorises 8 lanes wide (reassociation
 # allowed), so the last bits of every rate (a sum of non-integer level
 # bits) follow its order, read from the optimised IR of that program:
-#   S = 8, 16, 32: for each row v, lanes k = 0..7 take the row's parts
-#     P_p = x[v, 8p:8p+8]; the running sum s joins lane 0 of P_0; the
-#     parts are combined as R = P_p + R for p = 1 .. S/8-1; then
+#   default (W = 8, 16, 32): for each row v, lanes k = 0..7 take the row's
+#     parts P_p = x[v, 8p:8p+8]; the running sum s joins lane 0 of P_0;
+#     the parts are combined as R = P_p + R for p = 1 .. W/8-1; then
 #     s = ((R0+R4)+(R2+R6)) + ((R1+R5)+(R3+R7)).
-#   S = 64: the reduction is split into 32×32 windows, each summed
-#     sequentially row-major from 0; then (W00 + W01) + (W10 + W11).
-#   Row lanes (S = 8..32), where LLVM unrolls the column loop and
-#     vectorises the row loop instead: lane v sums rows v, v+8, ... in
-#     turn, each left to right; then the same tree.
+#   A side of 64: the reduction is split into windows of
+#     min(H, 32) × min(W, 32), each summed sequentially row-major from 0;
+#     then W0 + W1, or (W00 + W01) + (W10 + W11).
+#   Row lanes (H = 4..32), where LLVM vectorises the row loop instead:
+#     lane v sums rows v, v+8, ... in turn, each left to right; then the
+#     same tree (4 rows: 4 lanes, then (l0+l2)+(l1+l3)).
+#   Tail (W = 16, 32): per row, columns 0..W-9 as in the default order,
+#     the tree, then the last 8 columns added one by one.
+#   Part order (W = 16, 32): per row, the parts added onto the running
+#     total in a given order (the x86 backend's FMA chain), then the tree.
 # ---------------------------------------------------------------------------
 
 
@@ -158,57 +163,87 @@ def _tree8(r: torch.Tensor) -> torch.Tensor:
             + ((r[..., 1] + r[..., 5]) + (r[..., 3] + r[..., 7])))
 
 
+def rate_order(h: int, w: int) -> dict:
+    """The order of vvc's level-rate sum over an H×W block in its search
+    program (stages A and B, the ISP sub-TUs and the TT mid planes; read
+    from the optimised LLVM IR, one reduction per shape): row lanes where
+    the block is 4 wide, the tail order where it has at most 8 rows and
+    16 or 32 columns, else the default (windows at a side of 64)."""
+    if w == 4:
+        return {"row_lanes": True}
+    if h <= 8 and w in (16, 32):
+        return {"tail": True}
+    return {}
+
+
 def xla_block_sum(x: torch.Tensor, row_lanes: bool = False,
-                  tail: bool = False) -> torch.Tensor:
-    """[M, S, S] float32 → [M] float32, summed in XLA-CPU's order.
-    row_lanes (S ≤ 32): vectorised the other way round — lane v sums rows
-    v, v+8, ... left to right, then the 8 lanes meet in the same halving
-    tree.  The order of the 8×8 SSE, of the LFNST stage's 8×8 rate and of
-    the chroma decision's CCLM sums.
-    tail (S = 16, 32): row by row, columns 0..S-9 lane-wise (lane v sums
+                  tail: bool = False, part_order: tuple | None = None
+                  ) -> torch.Tensor:
+    """[M, H, W] float32 → [M] float32, summed in XLA-CPU's order (H, W ∈
+    4..64).  Default: see above (W ≥ 8; windows at a side of 64).
+    row_lanes (H = 4..32): lane v sums rows v, v+8, ... left to right,
+    then the 8 lanes meet in the halving tree (4 rows: 4 lanes, then
+    (l0+l2)+(l1+l3)) — the order of the 8×8 SSE, of the LFNST stage's 8×8
+    rate, of the chroma decision's CCLM sums, of the 4-wide rates and of
+    most 8-wide SSEs.
+    tail (W = 16, 32): row by row, columns 0..W-9 lane-wise (lane v sums
     columns v, v+8, ..., the running total joining lane 0), the halving
-    tree, then the last 8 columns added one by one — the order of some
-    chroma sums in the vmapped tile program."""
-    m, s, s2 = x.shape
-    assert s == s2 and s in (8, 16, 32, 64), x.shape
+    tree, then the last 8 columns added one by one — the order of the
+    rates of blocks with at most 8 rows, and of some chroma sums in the
+    vmapped tile program.
+    part_order (W = 16, 32): the default order with the row's parts of 8
+    added onto the running total in this order, e.g. (0, 2, 3, 1):
+    (((s + P0) + P2) + P3) + P1 — the order the x86 backend gives some
+    SSE sums of vvc's MTT search program, where it turns the vectorised
+    adds into one chain of FMAs."""
+    m, h, w = x.shape
+    assert h in (4, 8, 16, 32, 64) and w in (4, 8, 16, 32, 64), x.shape
     x = x.to(torch.float32)
     if tail:
-        assert s in (16, 32), x.shape
+        assert w in (16, 32), x.shape
         tot = torch.zeros((m,), dtype=torch.float32, device=x.device)
-        for v in range(s):
+        for v in range(h):
             lanes = x[:, v, 0:8].clone()
             lanes[:, 0] = tot + x[:, v, 0]
-            for p in range(8, s - 8, 8):
+            for p in range(8, w - 8, 8):
                 lanes = lanes + x[:, v, p:p + 8]
             tot = _tree8(lanes)
-            for j in range(s - 8, s):
+            for j in range(w - 8, w):
                 tot = tot + x[:, v, j]
         return tot
     if row_lanes:
-        assert s <= 32, x.shape
-        acc = x[:, 0:8, 0]
-        for r in range(0, s, 8):
-            for j in range(int(r == 0), s):
-                acc = acc + x[:, r:r + 8, j]
+        assert 4 <= h <= 32, x.shape
+        nl = min(h, 8)                  # 4 rows: 4 lanes, then their tree
+        acc = x[:, 0:nl, 0]
+        for r in range(0, h, nl):
+            for j in range(int(r == 0), w):
+                acc = acc + x[:, r:r + nl, j]
+        if nl == 4:
+            return (acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])
         return _tree8(acc)
-    if s == 64:
-        win = x.reshape(m, 2, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(
-            m, 2, 2, 1024)
-        acc = torch.zeros((m, 2, 2), dtype=torch.float32, device=x.device)
-        for i in range(1024):
+    if h == 64 or w == 64:
+        wh, ww = min(h, 32), min(w, 32)
+        ny, nx = h // wh, w // ww
+        win = x.reshape(m, ny, wh, nx, ww).permute(0, 1, 3, 2, 4).reshape(
+            m, ny, nx, wh * ww)
+        acc = torch.zeros((m, ny, nx), dtype=torch.float32, device=x.device)
+        for i in range(wh * ww):
             acc = acc + win[..., i]
-        return (acc[:, 0, 0] + acc[:, 0, 1]) + (acc[:, 1, 0] + acc[:, 1, 1])
-    parts = x.reshape(m, s, s // 8, 8)
-    lanes = parts[:, :, 0, :]
-    for p in range(1, s // 8):
-        lanes = parts[:, :, p, :] + lanes     # lanes 1..7: no running sum
+        if ny * nx == 4:
+            return ((acc[:, 0, 0] + acc[:, 0, 1])
+                    + (acc[:, 1, 0] + acc[:, 1, 1]))
+        acc = acc.reshape(m, 2)
+        return acc[:, 0] + acc[:, 1]
+    assert w >= 8, x.shape
+    parts = x.reshape(m, h, w // 8, 8)
     tot = torch.zeros((m,), dtype=torch.float32, device=x.device)
-    for v in range(s):
-        lane0 = tot + parts[:, v, 0, 0]
-        for p in range(1, s // 8):
-            lane0 = parts[:, v, p, 0] + lane0
-        r = torch.cat([lane0[:, None], lanes[:, v, 1:]], dim=1)
-        tot = _tree8(r)
+    for v in range(h):
+        order = part_order or range(w // 8)
+        lanes = parts[:, v, order[0]].clone()
+        lanes[:, 0] = tot + lanes[:, 0]
+        for p in order[1:]:
+            lanes = lanes + parts[:, v, p]
+        tot = _tree8(lanes)
     return tot
 
 
@@ -217,15 +252,23 @@ def xla_block_sum(x: torch.Tensor, row_lanes: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def _rate_order(h: int, w: int, row_lanes: bool) -> dict:
+    """The sum order of a quant_rate call: row lanes where the caller asks
+    for them (the LFNST stage's 8×8 rate), else vvc's for the shape."""
+    return {"row_lanes": True} if row_lanes else rate_order(h, w)
+
+
 def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
                      row_lanes: bool = False, intra: bool = True):
     """Plain twin of the `quant_rate` kernel: the composition of
     quant_batch, level_bits and dequant_batch, with the rate summed per
-    block in XLA's order.  → (rate [N] f32, dequantised [N,S,S] i32); the
+    block in XLA's order.  → (rate [N] f32, dequantised [N,H,W] i32); the
     levels are not returned, as the kernel does not write them."""
     from vvc_torch.cabac.rates import level_bits
     lev = quant_batch(coeff, qp, bit_depth, intra=intra)
-    rate = xla_block_sum(level_bits(lev.abs()), row_lanes)
+    h, w = coeff.shape[1:]
+    rate = xla_block_sum(level_bits(lev.abs()), **_rate_order(h, w,
+                                                               row_lanes))
     return rate, dequant_batch(lev, qp, bit_depth)
 
 
@@ -237,15 +280,21 @@ def _rate_tables(device: str):
             torch.from_numpy(LEVEL_BITS_TABLE.copy()).to(device))
 
 
+_SIDES = (4, 8, 16, 32, 64)
+
+
 def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
                      row_lanes: bool, intra: bool):
     from vvc_torch.cabac.rates import log_scale_f32
     ops.check_cuda_i32("quant_rate", coeff)
     n, h, w = coeff.shape
-    if h != w or w not in (8, 16, 32, 64):
+    if h not in _SIDES or w not in _SIDES or h * w < 32:
         raise ValueError(f"quant_rate: unsupported block {h}x{w}")
-    if row_lanes and w != 8:
-        raise ValueError("quant_rate: row_lanes is an 8x8 order")
+    order = _rate_order(h, w, row_lanes)
+    if order.get("row_lanes") and not 8 <= h <= 32:
+        raise ValueError(f"quant_rate: row lanes need 8..32 rows, not {h}")
+    if not order and w == 4:
+        raise ValueError("quant_rate: a 4-wide block sums in row lanes")
     scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, intra)
     dscale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
     if shift <= 0:
@@ -256,29 +305,30 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
     if n == 0:
         return rate, deq
     fn = ops.lib("quant_rate").quant_rate_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                             ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    mode = 1 if order.get("row_lanes") else (2 if order.get("tail") else 0)
     err = fn(coeff.data_ptr(), log_tab.data_ptr(), base_tab.data_ptr(),
-             deq.data_ptr(), rate.data_ptr(), n, w,
+             deq.data_ptr(), rate.data_ptr(), n, w, h,
              scale, offset, qbits, dscale, sh6, shift,
-             float(log_scale_f32()), int(row_lanes), ops.stream_ptr(coeff))
+             float(log_scale_f32()), mode, ops.stream_ptr(coeff))
     ops.launched("quant_rate", err)
     return rate, deq
 
 
 def quant_rate(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
                row_lanes: bool = False, intra: bool = True):
-    """[N,S,S] int32 coefficients → (rate [N] f32, dequantised [N,S,S]
-    i32).  One pass of vvc's quant_batch,
+    """[N,H,W] int32 coefficients → (rate [N] f32, dequantised [N,H,W]
+    i32), H, W ∈ 4..64.  One pass of vvc's quant_batch,
     level_bits_jnp + sum and dequant_batch (vvc/kernels/quant.py:87,106,
-    vvc/cabac/rates.py:41).  row_lanes (S = 8 only): sum the rate in the
-    order XLA gives the 8×8 reduction of the LFNST stage (each row in its
-    own lane, then the lane tree) instead of the stages-A/B order.  intra
-    picks the dead zone: offset 171/512 (intra search) or 85/512 (the
-    inter search's `_inter_rd_dev`).  CUDA tensor →
-    vvc_torch/csrc/quant_rate.cu; CPU tensor or `ops.plain()` →
+    vvc/cabac/rates.py:41).  The rate is summed in the order XLA gives
+    vvc's search program for the shape (`rate_order`); row_lanes (8×8):
+    in the order of the LFNST stage's rate instead (each row in its own
+    lane, then the lane tree).  intra picks the dead zone: offset 171/512
+    (intra search) or 85/512 (the inter search's `_inter_rd_dev`).  CUDA
+    tensor → vvc_torch/csrc/quant_rate.cu; CPU tensor or `ops.plain()` →
     quant_rate_plain."""
     if ops.use_kernel(coeff):
         return _quant_rate_cuda(coeff, qp, bit_depth, row_lanes, intra)

@@ -125,9 +125,11 @@ def _transform_cuda(name: str, x: torch.Tensor, bit_depth: int, tr_h: int,
                     tr_v: int) -> torch.Tensor:
     ops.check_cuda_i32(name, x)
     n, h, w = x.shape
-    if h != w or w not in (4, 8, 16, 32, 64):
+    sides = (4, 8, 16, 32, 64)
+    if h not in sides or w not in sides:
         raise ValueError(f"{name}: unsupported block {h}x{w}")
-    if w == 64 and (tr_h != TrType.DCT2 or tr_v != TrType.DCT2):
+    if ((w == 64 and tr_h != TrType.DCT2)
+            or (h == 64 and tr_v != TrType.DCT2)):
         raise ValueError(f"{name}: 64-point transforms are DCT2 only")
     dev = str(x.device)
     th = _matrix(tr_h, w, dev)
@@ -136,11 +138,11 @@ def _transform_cuda(name: str, x: torch.Tensor, bit_depth: int, tr_h: int,
     if n == 0:
         return out
     fn = getattr(ops.lib(name), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), th.data_ptr(), tv.data_ptr(), out.data_ptr(), n,
-             w, bit_depth, ops.stream_ptr(x))
+             w, h, bit_depth, ops.stream_ptr(x))
     ops.launched(name, err)
     return out
 
@@ -148,7 +150,8 @@ def _transform_cuda(name: str, x: torch.Tensor, bit_depth: int, tr_h: int,
 def fwd_transform_batch(resi: torch.Tensor, bit_depth: int = 8,
                         tr_h: int = TrType.DCT2,
                         tr_v: int = TrType.DCT2) -> torch.Tensor:
-    """[N, H, W] int32 residuals → [N, H, W] int32 coefficients."""
+    """[N, H, W] int32 residuals → [N, H, W] int32 coefficients (W, H ∈
+    4..64; a 64-point side is DCT2 only on the card)."""
     if ops.use_kernel(resi):
         return _transform_cuda("transform_fwd", resi, bit_depth, tr_h, tr_v)
     return fwd_transform_batch_plain(resi, bit_depth, tr_h, tr_v)
@@ -157,7 +160,8 @@ def fwd_transform_batch(resi: torch.Tensor, bit_depth: int = 8,
 def inv_transform_batch(coeff: torch.Tensor, bit_depth: int = 8,
                         tr_h: int = TrType.DCT2,
                         tr_v: int = TrType.DCT2) -> torch.Tensor:
-    """[N, H, W] int32 coefficients → [N, H, W] int32 residuals."""
+    """[N, H, W] int32 coefficients → [N, H, W] int32 residuals (W, H ∈
+    4..64; a 64-point side is DCT2 only on the card)."""
     if ops.use_kernel(coeff):
         return _transform_cuda("transform_inv", coeff, bit_depth, tr_h,
                                tr_v)

@@ -91,14 +91,19 @@ def _recon_block(plane, orig, coded, x0, y0, size, mode, qp, bit_depth, levels,
                 from vvc_torch.kernels.lfnst import fwd_lfnst_np
                 coeff = fwd_lfnst_np(coeff, mode, lfnst)
             if dep_quant:
-                raise NotImplementedError(
-                    "vvc_torch: dependent quantization arrives with slice 2c")
-            levels = quant_np(coeff, qp, bit_depth, intra=intra)
+                from vvc_torch.kernels.depquant import quant_depquant_np
+                levels = quant_depquant_np(coeff, qp, bit_depth)
+            else:
+                levels = quant_np(coeff, qp, bit_depth, intra=intra)
     if np.any(levels):
         if lossless:
             rec_resi = _dpcm_inv(levels, bdpcm) if bdpcm else levels
         else:
-            deq = dequant_np(levels, qp, bit_depth)
+            if dep_quant:
+                from vvc_torch.kernels.depquant import dequant_depquant_np
+                deq = dequant_depquant_np(levels, qp, bit_depth)
+            else:
+                deq = dequant_np(levels, qp, bit_depth)
             if lfnst:
                 from vvc_torch.kernels.lfnst import inv_lfnst_np
                 deq = inv_lfnst_np(deq, mode, lfnst)

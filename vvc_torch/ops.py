@@ -53,6 +53,9 @@ SOURCES = {
     "me_coarse": "me.cu",
     "me_int": "me.cu",
     "me_qpel": "me.cu",
+    "ref_lines_rect": "ref_lines.cu",
+    "intra_pred_all_rect": "intra_pred.cu",
+    "intra_pred_one_rect": "intra_pred.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -160,7 +160,7 @@ def reconstruct_leaves_native_v2(leaves, recon_planes, qp: int,
              if enc else [None, None, None])
     if lmcs_chroma is not None:
         raise NotImplementedError(
-            "vvc_torch: LMCS chroma scaling arrives with slice 2c")
+            "vvc_torch: LMCS chroma scaling arrives with slice 2d (LMCS, WPP)")
     cs = None
     preds = pred_cache if pred_cache is not None else {}
     _run_component_v2(l, leaves, y_pl, coded_y, origs[0], qp, bit_depth,

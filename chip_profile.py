@@ -2,7 +2,8 @@
 """Where the port's main path spends its time on one NVIDIA GPU.
 
     python3 chip_profile.py [--trace profile_trace.json]
-                            [--lossy [3|2b|2a] | --inter | --mtt]
+                            [--lossy [3|2b|2a] | --inter | --mtt |
+                             --4b]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -41,6 +42,13 @@ unprofiled.
 `encode_sequence` of the two 1080p frames with the default tool set and
 mtt, isp, mrl and dep_quant on, twice: profiled (busy time and idle share
 as above) and unprofiled.
+
+--4b is the slice-4b main path of `chip_smoke.py` [16]: Random Access
+`encode_sequence(mode="ra", gop_size=16)` of 17 1080p frames of
+`chip_smoke.tool_clip` with bench_ra1080's tool set but LMCS
+(mtt, isp, mrl, dep_quant, affine, mctf, bdof, dmvr, mmvd, ciip, gpm,
+amvr, smvd, bcw), twice: profiled (busy time and idle share as above) and
+unprofiled; each run also prints the leaves chosen per slice-4b tool.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -88,6 +96,9 @@ def main() -> int:
     ap.add_argument("--mtt", action="store_true",
                     help="profile the slice-2c path (MTT, ISP, MRL, "
                          "dependent quantization; 2 frames)")
+    ap.add_argument("--4b", dest="s4b", action="store_true",
+                    help="profile the slice-4b path (RA with bench_ra1080's "
+                         "tools but LMCS)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -114,6 +125,11 @@ def main() -> int:
         frames = motion_clip(9, W, H)
     if args.mtt:
         encode_sequence([synth_frame(416, 240, 0)], qp=32, **tools_2c)
+    if args.s4b:
+        from chip_smoke import GOP_4B, N_4B, RA1080_TOOLS, tool_frames
+        encode_sequence(tool_frames(5, 416, 240), qp=32, mode="ra",
+                        gop_size=4, **RA1080_TOOLS)
+        frames = tool_frames(N_4B, W, H)
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
     if args.lossy == "2b":
         lossy.update(lfnst=True, cclm=True)
@@ -123,14 +139,16 @@ def main() -> int:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
         enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
-    elif not (args.inter or args.mtt):
+    elif not (args.inter or args.mtt or args.s4b):
         encode_sequence([synth_frame(416, 240, 0)], qp=32,
                         lossless=lossless)
-    lossless = lossless and not (args.inter or args.mtt)
-    one_run = per_frame or args.inter or args.mtt
+    lossless = lossless and not (args.inter or args.mtt or args.s4b)
+    one_run = per_frame or args.inter or args.mtt or args.s4b
     path = ("inter RA GOP8" if args.inter else
             "AI mtt+isp+mrl+dep_quant" if args.mtt else
+            f"RA GOP{GOP_4B} slice 4b" if args.s4b else
             f"lossy {args.lossy}" if args.lossy else "lossless")
+    tools = {}
 
     def run(name, calls):
         perf.reset()
@@ -144,6 +162,13 @@ def main() -> int:
                 encode_sequence(fs, qp=32, mode="ra", gop_size=8)
             elif args.mtt:
                 encode_sequence(fs, qp=32, **tools_2c)
+            elif args.s4b:
+                stats = encode_sequence(fs, qp=32, mode="ra",
+                                        gop_size=GOP_4B, **RA1080_TOOLS)[2]
+                tools.clear()
+                for st in stats:
+                    for k, v in st.get("inter_tools", {}).items():
+                        tools[k] = tools.get(k, 0) + v
             else:
                 encode_sequence(fs, qp=32, lossless=lossless)
         torch.cuda.synchronize()
@@ -153,12 +178,13 @@ def main() -> int:
                 "frames": len(frames),
                 "size": f"{W}x{H}", "wall_s": wall,
                 "frames_per_s": len(frames) / wall,
-                "phases": perf.report(), "card": card}
+                "phases": perf.report(), "card": card,
+                **({"inter_tools": dict(tools)} if args.s4b else {})}
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        rec = run("serial-profiled" if per_frame or args.inter
+        rec = run("serial-profiled" if per_frame or args.inter or args.s4b
                   else "pooled-profiled", [frames])
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)

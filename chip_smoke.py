@@ -13,20 +13,26 @@ frames), lossy `encode_sequence` with its default tool set, SAO, ALF
 and CC-ALF included (slice 3, two frames), and Random Access
 `encode_sequence(mode="ra", gop_size=8)` with the same defaults on a
 clip in global sub-pel motion (slice 4a, nine frames: I, P and seven B
-pictures), and lossy `encode_sequence` with the MTT lattice, ISP, MRL and
-dependent quantization on top of the defaults (slice 2c, two frames) —
-and checks what comes out:
+pictures), lossy `encode_sequence` with the MTT lattice, ISP, MRL and
+dependent quantization on top of the defaults (slice 2c, two frames), and
+Random Access `encode_sequence(mode="ra", gop_size=16)` with bench_ra1080's
+tool set but LMCS — the 2c tools plus affine, MCTF, BDOF, DMVR, MMVD,
+CIIP, GPM, AMVR, SMVD and BCW — on a zoom, two-motion and fade clip
+(slice 4b, seventeen frames) — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the twenty-one kernels against its plain version on the
+  3. each of the twenty-four kernels against its plain version on the
      card (exact equality; the quant_rate kernel's float rates, the filter
      statistics and the motion search's costs bit for bit), at the main
      paths' shapes, with CUDA-event times per 1080p frame (the SAO and
      ALF statistics on the recon of a 2b picture, after [7]; the four
      motion-search kernels per 1080p B picture with 2 refs per list; the
      three rect kernels, and the transforms and quant_rate at the rect
-     and ISP shapes, per 1080p frame of the slice-2c path);
+     and ISP shapes, per 1080p frame of the slice-2c path; affine_search
+     and affine_dctif per 1080p B picture, reference 0 of each list at
+     sizes 64, 32 and 16; me_block_err per 1080p MCTF anchor, four
+     neighbours);
   4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
      kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
@@ -60,7 +66,15 @@ and checks what comes out:
      by shape, the search vector == the plain path's, frames/s, the
      search's device ms and the host phases;
   15. at 416×240 (2 frames), the slice-2c kernel streams byte-equal to
-     the plain path's, single tile and 2 tile columns.
+     the plain path's, single tile and 2 tile columns;
+  16. the slice-4b main path (17 frames 1080p RA GOP 16 on `tool_clip`):
+     every one of the twenty-four kernels launched (these counts fill the
+     table for the three 4b kernels), NAL and slice types, PSNR and bytes
+     in range, the leaves chosen per 4b tool (affine must be among them),
+     MCTF run, frames/s and the host phases;
+  17. at 416×240 on the tool clip, the kernel path's streams byte-equal
+     to the plain path's: LDP with affine (3 frames) and RA GOP 4 with the
+     ten 4b options (5 frames).
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -85,6 +99,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 W_HD, H_HD = 1920, 1080
+# the slice-4b path [16]: frames and GOP size (bench_ra1080: 17 and 16)
+N_4B, GOP_4B = 17, 16
 SIZES = (8, 16, 32, 64)
 MTS_SIZES = (8, 16, 32)      # stage B (MTS) and MIP sizes
 # launches per 1080p frame on the lossy main path: stage A at 4 sizes +
@@ -115,6 +131,62 @@ MID_RECT = ((("TH", 32), (32, 16)), (("TV", 32), (16, 32)),
             (("TV", 8), (16, 8)), (("TH", 8), (8, 16)))
 RECT_KERNELS = ("ref_lines_rect", "intra_pred_all_rect",
                 "intra_pred_one_rect")
+# slice 4b: the kernels only its tools launch, the ten options, and
+# bench_ra1080's tool set (bench.py:57-60) without LMCS (slice 2d)
+KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
+TOOLS_4B = dict(affine=True, mctf=True, bdof=True, dmvr=True, mmvd=True,
+                ciip=True, gpm=True, amvr=True, smvd=True, bcw=True)
+RA1080_TOOLS = dict(TOOLS_4B, mtt=True, isp=True, dep_quant=True, mrl=True)
+# operations per sample and candidate of the affine search: the bilinear
+# (6 multiplies, 3 adds, the rounding's 3 and the clip's 2), the
+# difference, the 8x8 Hadamard's 6 add/subtracts and |.| + sum (2)
+AFF_OPS_PER_SAMPLE = 23
+
+
+def tool_clip(n: int, w: int, h: int, seed: int = 5, zoom: float = 0.035,
+              step: int = 15):
+    """Luma planes [h, w] of n frames on which the slice-4b tools engage,
+    one quadrant each, after the warp clip of tests/test_affine.py: top left
+    a zoom about the quadrant's centre (affine), top right two textures
+    split by a diagonal that pan apart (GPM), bottom left a static texture
+    under a non-linear fade (BCW), bottom right a smooth ramp under a
+    brightness ramp (CIIP).  Test content, made from `seed`."""
+    rng = np.random.default_rng(seed)
+    hw, hh = w // 2, h // 2
+    p = rng.integers(0, 256, (2 * hh, 2 * hw)).astype(np.float64)
+    for _ in range(3):
+        p = (np.roll(p, 1, 0) + p + np.roll(p, -1, 0)) / 3.0
+        p = (np.roll(p, 1, 1) + p + np.roll(p, -1, 1)) / 3.0
+    texa = rng.integers(60, 200, (hh + 64, hw + 64))
+    texb = rng.integers(60, 200, (hh + 64, hw + 64))
+    tex = rng.integers(-20, 21, (h - hh, hw))
+    tex2 = rng.integers(-8, 9, (h - hh, w - hw))
+    bright = (160, 130, 100, 50, 0, 40, 90, 150, 200)
+    yy, xx = np.mgrid[0:hh, 0:hw]
+    upper = (xx + yy) < (hw + hh) // 2
+    ry, rx = np.mgrid[0:h - hh, 0:w - hw]
+    frames = []
+    for t in range(n):
+        s = 1.0 + zoom * t
+        sx = np.clip((xx - hw / 2) / s + hw, 0, 2 * hw - 1).astype(int)
+        sy = np.clip((yy - hh / 2) / s + hh, 0, 2 * hh - 1).astype(int)
+        y = np.zeros((h, w), np.int64)
+        y[:hh, :hw] = np.rint(p[sy, sx])
+        a = texa[16:16 + hh, 16 + 2 * t:16 + 2 * t + hw]
+        b = texb[16 + 2 * t:16 + 2 * t + hh, 16:16 + hw]
+        y[:hh, hw:] = np.where(upper, a, b)[:, :w - hw]
+        y[hh:, :hw] = bright[t % len(bright)] // 2 + 40 + tex
+        y[hh:, hw:] = (96 + (19.2 / (w - hw)) * rx + (6.4 / (h - hh)) * ry
+                       + tex2 + step * (t % 8)).astype(np.int64)
+        frames.append(np.clip(y, 0, 255).astype(np.int32))
+    return frames
+
+
+def tool_frames(n: int, w: int, h: int):
+    """`tool_clip` as 4:2:0 frames with flat chroma."""
+    from vvc_torch.io.yuv import Frame
+    c = np.full((h // 2, w // 2), 128, np.int32)
+    return [Frame(y, c.copy(), c.copy(), 8) for y in tool_clip(n, w, h)]
 
 
 def check(cond, msg: str) -> None:
@@ -951,6 +1023,143 @@ def main() -> int:
               f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
               f"{st['bound_ms']:.3f} ms ({st['bound_by']}), library "
               f"{st['library_ms']}", flush=True)
+    # the slice-4b kernels at the 1080p shapes of the 4b main path: the
+    # affine search (affine_search, then affine_dctif for the winner's
+    # prediction) per 1080p B picture, reference 0 of each list at sizes
+    # 64, 32 and 16 (16 on the grid extended for the 8x8 children), at the
+    # translational winners of me_int/me_qpel; me_block_err per 1080p MCTF
+    # anchor (four neighbours).  Exact against the plain versions on the
+    # tool clip (8 bit) and on noise (10 bit); times on the tool clip.
+    t4 = [torch.from_numpy(y).to(dev) for y in tool_clip(5, W_HD, H_HD)]
+    _, lam_m = rdo.lambda_f32(32)
+    for bd in (8, 10):
+        if bd == 8:
+            planes = t4
+        else:
+            planes = [torch.from_numpy(rng.integers(0, 1024, (H_HD, W_HD))
+                                       .astype(np.int32)).to(dev)
+                      for _ in range(5)]
+        time_it = bd == 8
+        cur, refs = planes[2], (planes[1], planes[3])
+        preps = [me.prep_ref(r) for r in refs]
+        grids = me.coarse_search(me.prep_ref(cur)[1],
+                                 torch.stack([p[1] for p in preps]))
+        for s in (64, 32, 16):
+            if s == 16:
+                nye, nxe = (H_HD // 8 + 1) // 2, (W_HD // 8 + 1) // 2
+            else:
+                nye, nxe = H_HD // s, W_HD // s
+            ry = torch.arange(nye * s, device=dev).clamp(max=H_HD - 1)
+            rx = torch.arange(nxe * s, device=dev).clamp(max=W_HD - 1)
+            ob = (cur[ry][:, rx].reshape(nye, s, nxe, s).permute(0, 2, 1, 3)
+                  .reshape(-1, s, s).contiguous())
+            xs_, ys_ = grid_xy(s, nxe * s, nye * s, dev)
+            g = grids[s]
+            giy = (ys_ // s).long().clamp(max=g.shape[1] - 1)
+            gix = (xs_ // s).long().clamp(max=g.shape[2] - 1)
+            nblk = ob.shape[0]
+            for li in range(2):
+                rp = preps[li][0]
+                iy, ix, _, _ = me.int_refine(rp, ob, ys_, xs_,
+                                             g[li, giy, gix, 0],
+                                             g[li, giy, gix, 1], lam_m, s,
+                                             H_HD, W_HD)
+                mvy, mvx, _, _ = me.qpel_refine(rp, ob, ys_, xs_, iy, ix,
+                                                lam_m, s, bd)
+                fargs = (rp, ob, ys_, xs_, mvy, mvx, iy, ix, lam_m, s, bd)
+                fk = me.affine_fields(*fargs)
+                with ops.plain():
+                    fp = me.affine_fields(*fargs)
+                compare("affine_search", fk[0].view(torch.int32),
+                        fp[0].view(torch.int32))
+                for a, b in zip(fk[1:], fp[1:]):
+                    compare("affine_search", a, b)
+                dargs = (rp, ys_, xs_, iy, ix, fk[3], fk[4], s, bd)
+                pk = me.affine_dctif_pred(*dargs)
+                with ops.plain():
+                    pp = me.affine_dctif_pred(*dargs)
+                compare("affine_dctif", pk, pp)
+                del fp, pp
+                if not time_it:
+                    continue
+                f = lambda: me.affine_fields(*fargs)
+                k_ms = cuda_ms(f, iters=3, warmup=1)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=1, warmup=0)
+                m2 = s + 12
+                plane_b = (H_HD + 32) * (W_HD + 32) * 4
+                add_time("affine_search", k_ms, p_ms,
+                         plane_b + nblk * (s * s + 4) * 4
+                         + nblk * (3 + 2 * (s // 4) ** 2) * 4
+                         + (64 + 4096) * 4,
+                         nblk * 57 * s * s * AFF_OPS_PER_SAMPLE)
+                f = lambda: me.affine_dctif_pred(*dargs)
+                k_ms = cuda_ms(f)
+                with ops.plain():
+                    p_ms = cuda_ms(f, iters=1, warmup=0)
+                add_time("affine_dctif", k_ms, p_ms,
+                         plane_b + nblk * (4 + 2 * (s // 4) ** 2) * 4
+                         + nblk * s * s * 4,
+                         nblk * s * s * 2 * 8 * 9)
+                # yardstick: the 16 DCTIF phases of every window as one
+                # float64 conv2d; each sample takes its subblock's phase
+                # and offset, rounded half to even
+                kk = torch.arange(m2, device=dev)
+                w2 = rp[(ys_ + 10 + iy)[:, None, None] + kk[None, :, None],
+                        (xs_ + 10 + ix)[:, None, None] + kk[None, None, :]]
+                w2 = w2.to(torch.float64)[:, None]
+                lf = torch.from_numpy(np.asarray(LUMA_FILTERS, np.float64)
+                                      ).to(dev)
+                kern = (lf[:, None, :, None] * lf[None, :, None, :]
+                        ).reshape(16, 1, 8, 8)
+                lib = lambda: torch.nn.functional.conv2d(w2, kern)
+                acc = lib()
+                rep = lambda t: t.repeat_interleave(4, 1).repeat_interleave(
+                    4, 2).long()
+                qy, qx = rep(fk[3]), rep(fk[4])
+                ar = torch.arange(s, device=dev)
+                sel = acc[torch.arange(nblk, device=dev)[:, None, None],
+                          (qy & 3) * 4 + (qx & 3),
+                          ar[None, :, None] + (qy >> 2) + 3,
+                          ar[None, None, :] + (qx >> 2) + 3]
+                libp = torch.round(sel / 4096.0).clamp(0, 255)
+                compare("affine_dctif", libp.to(torch.int32), pk)
+                stats["affine_dctif"]["library_ms"] = (
+                    stats["affine_dctif"]["library_ms"] or 0.0) + cuda_ms(
+                        lib, iters=3, warmup=1)
+                del w2, acc, sel, libp
+        # me_block_err: the MCTF search of one neighbour (me_pred_v2) and
+        # the block error alone
+        nref = planes[1]
+        rpad, rds = me.prep_ref(nref)
+        c16 = me.coarse_search(me.prep_ref(cur)[1], rds[None])[16][0]
+        pk = me.me_pred_v2(cur, rpad, c16, W_HD, H_HD, bd, lam_m)
+        with ops.plain():
+            pp = me.me_pred_v2(cur, rpad, c16, W_HD, H_HD, bd, lam_m)
+        compare("me_block_err", pk[0], pp[0])
+        compare("me_block_err", pk[1].view(torch.int32),
+                pp[1].view(torch.int32))
+        ny16, nx16 = H_HD // 16, W_HD // 16
+        ob16 = (cur[:ny16 * 16, :nx16 * 16].reshape(ny16, 16, nx16, 16)
+                .permute(0, 2, 1, 3).reshape(-1, 16, 16).contiguous())
+        pred16 = (pk[0].reshape(ny16, 16, nx16, 16).permute(0, 2, 1, 3)
+                  .reshape(-1, 16, 16).contiguous())
+        if time_it:
+            f = lambda: me.block_err(pred16, cur, ny16, nx16)
+            k_ms = cuda_ms(f)
+            with ops.plain():
+                p_ms = cuda_ms(f, iters=3, warmup=1)
+            nb = ny16 * nx16
+            add_time("me_block_err", 4 * k_ms, 4 * p_ms,
+                     4 * (nb * 256 * 4 * 2 + H_HD * W_HD * 4 + nb * 4),
+                     4 * nb * 256 * 3)
+            sq = (pk[0] - cur[:ny16 * 16, :nx16 * 16]).to(torch.float32
+                                                          ) ** 2
+            lib = lambda: torch.nn.functional.avg_pool2d(sq[None, None], 16)
+            stats["me_block_err"]["library_ms"] = 4 * cuda_ms(lib)
+        del pk, pp, ob16, pred16
+        del planes, preps, grids
+    del t4
     torch.cuda.synchronize()
     for name, st in stats.items():
         if name in ("sao_stats", "alf_stats"):
@@ -1290,7 +1499,7 @@ def main() -> int:
     launches = dict(ops.COUNTS)
     phases = perf.report()
     for name in ops.COUNTS:
-        check((launches[name] > 0) == (name not in RECT_KERNELS),
+        check((launches[name] > 0) == (name not in RECT_KERNELS + KERNELS_4B),
               f"{name}: {launches[name]} launches on the slice-4a main "
               f"path")
     nals12 = read_annexb(bs12)
@@ -1362,7 +1571,7 @@ def main() -> int:
     launches14 = dict(ops.COUNTS)
     phases = perf.report()
     for name in ops.COUNTS:
-        check((launches14[name] > 0) == (name not in ME_KERNELS),
+        check((launches14[name] > 0) == (name not in ME_KERNELS + KERNELS_4B),
               f"{name}: {launches14[name]} launches on the slice-2c main "
               f"path")
     types = [n.nal_type for n in read_annexb(bs14)]
@@ -1427,7 +1636,79 @@ def main() -> int:
         print(f"[15] 416x240 2 frames mtt+isp+mrl+dep_quant, {cols} tile "
               f"column(s): {len(a)} bytes, {el:.2f} s; kernel stream == "
               f"plain stream", flush=True)
-    print(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    # 16. the slice-4b main path: Random Access GOP 16 at 1080p with
+    # bench_ra1080's tool set but LMCS, on the tool clip; its counts fill
+    # the table for the three 4b kernels
+    clip16 = tool_frames(N_4B, W_HD, H_HD)
+    perf.reset()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    bs16, recons16, stats16 = encode_sequence(clip16, qp=32, mode="ra",
+                                              gop_size=GOP_4B,
+                                              **RA1080_TOOLS)
+    torch.cuda.synchronize()
+    elapsed16 = time.perf_counter() - t0
+    launches16 = dict(ops.COUNTS)
+    phases16 = perf.report()
+    for name in ops.COUNTS:
+        check(launches16[name] > 0, f"{name}: {launches16[name]} launches "
+              f"on the slice-4b main path")
+    nals16 = read_annexb(bs16)
+    types = [n.nal_type for n in nals16]
+    slice_nals = [n for n in nals16 if n.nal_type in (0, 8)]
+    check(types[:2] == [15, 16] and len(slice_nals) == len(clip16)
+          and types[2:].count(24) == len(clip16)
+          and set(types[2:]) <= {0, 8, 17, 24},
+          f"slice-4b stream NAL types {types}")
+    order16 = [s16["slice_type"] for s16 in stats16]
+    check(order16[0] == 2 and order16[-1] == 1
+          and set(order16[1:-1]) == {0}, f"slice types by POC {order16}")
+    for f, r, s16 in zip(clip16, recons16, stats16):
+        for a, b in ((f.y, r.y), (f.cb, r.cb), (f.cr, r.cr)):
+            check(a.shape == b.shape and int(b.min()) >= 0
+                  and int(b.max()) <= 255, "slice-4b recon out of range")
+        # the clip's chroma is flat: its PSNR may be infinite
+        for k, hi in (("psnr_y", 70.0), ("psnr_cb", float("inf")),
+                      ("psnr_cr", float("inf"))):
+            check(25.0 < s16[k] <= hi, f"slice 4b POC {s16['poc']} {k} "
+                  f"{s16[k]}")
+    check(10000 < len(bs16) < len(clip16) * 600000,
+          f"slice-4b stream {len(bs16)} bytes")
+    tools16 = {}
+    for s16 in stats16:
+        for k, v in s16.get("inter_tools", {}).items():
+            tools16[k] = tools16.get(k, 0) + v
+    check(tools16.get("affine", 0) > 0, f"no affine leaf on the 4b path: "
+          f"{tools16}")
+    check(phases16.get("mctf", {}).get("n", 0) > 0, "MCTF did not run")
+    print(f"[16] slice-4b main path: {len(clip16)} frames 1920x1080 RA "
+          f"GOP{GOP_4B} QP32 (encode_sequence with {sorted(RA1080_TOOLS)}, "
+          f"tool clip) on {kind}: {len(bs16)} bytes, {elapsed16:.2f} s, "
+          f"{len(clip16) / elapsed16:.4f} frames/s; slice types by POC "
+          f"{order16}; PSNR-Y by POC "
+          f"{[round(float(x['psnr_y']), 4) for x in stats16]} dB; bytes by "
+          f"POC {[x['bits'] // 8 for x in stats16]}; leaves per tool "
+          f"{json.dumps(tools16)}; launches {launches16}; phases "
+          f"(thread-seconds) {json.dumps(phases16)}", flush=True)
+
+    # 17. kernel path byte-equal to the plain path at 416x240 with the
+    # slice-4b tools: LDP with affine (3 frames), RA GOP 4 with the ten
+    # options (5 frames)
+    clip_t = tool_frames(5, 416, 240)
+    for mode, n, kw in (("ldp", 3, {"affine": True}),
+                        ("ra", 5, dict(TOOLS_4B, gop_size=4))):
+        t0 = time.perf_counter()
+        a = encode_sequence(clip_t[:n], qp=32, mode=mode, **kw)[0]
+        el = time.perf_counter() - t0
+        with ops.plain():
+            b = encode_sequence(clip_t[:n], qp=32, mode=mode, **kw)[0]
+        check(a == b, f"416x240 4b {mode} {n} frames: kernel stream != "
+              f"plain stream")
+        print(f"[17] 416x240 {mode.upper()} {n} frames {sorted(kw)}: "
+              f"{len(a)} bytes, {el:.2f} s; kernel stream == plain stream",
+              flush=True)
+    print(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -1451,13 +1732,18 @@ def main() -> int:
            "me_qpel": "vvc/enc/me.py:203",
            "ref_lines_rect": "vvc/enc/rdo.py:86",
            "intra_pred_all_rect": "vvc/kernels/intra.py:799",
-           "intra_pred_one_rect": "vvc/kernels/intra.py:822"}
-    # launches: the rect kernels' from the slice-2c path [14], the others'
-    # from the slice-4a path [12], as before
+           "intra_pred_one_rect": "vvc/kernels/intra.py:822",
+           "affine_search": "vvc/enc/me.py:272",
+           "affine_dctif": "vvc/enc/me.py:374",
+           "me_block_err": "vvc/enc/me.py:423"}
+    # launches: the rect kernels' from the slice-2c path [14], the 4b
+    # kernels' from the slice-4b path [16], the others' from the slice-4a
+    # path [12], as before
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k],
               "launches": (launches14 if k in RECT_KERNELS
+                           else launches16 if k in KERNELS_4B
                            else launches12)[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],

@@ -12,6 +12,9 @@ import pytest
 
 pytestmark = pytest.mark.cuda
 
+# the kernels only the slice-4b tools launch (affine search, MCTF)
+KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
+
 
 @pytest.fixture
 def dev():
@@ -242,12 +245,13 @@ def test_2b_search_vector_equal_plain(dev, cols):
     assert torch.equal(got, want)
     # every kernel of the QT-only intra search (the filter statistics run
     # after it; the motion search's kernels belong to the inter search,
-    # the rect kernels to the MTT lattice)
+    # the rect kernels to the MTT lattice, the slice-4b kernels to the
+    # affine search and MCTF)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
                             "me_coarse", "me_int", "me_qpel",
                             "ref_lines_rect", "intra_pred_all_rect",
-                            "intra_pred_one_rect"))
+                            "intra_pred_one_rect") + KERNELS_4B)
 
 
 @pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
@@ -514,7 +518,7 @@ def test_mtt_isp_search_vector_equal_plain(dev, cols):
     assert torch.equal(got, want)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
-                            "me_coarse", "me_int", "me_qpel"))
+                            "me_coarse", "me_int", "me_qpel") + KERNELS_4B)
 
 
 def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
@@ -530,3 +534,117 @@ def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
         with ops.plain():
             want = encode_sequence(frames, num_tile_cols=cols, **kw)[0]
         assert got == want, cols
+
+
+# ---------------------------------------------------------------------------
+# Slice 4b: the affine search, its DCTIF prediction, MCTF's block error
+# ---------------------------------------------------------------------------
+
+def _affine_inputs(dev, s, bit_depth, n, seed, content):
+    """Padded reference, blocks, origins, integer winners and quarter-pel
+    seeds for the affine search (windows inside the padded plane)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    mx = (1 << bit_depth) - 1
+    H = W = 4 * s
+    if content == "noise":
+        refpad = rng.integers(0, mx + 1, (H + 32, W + 32))
+        ob = rng.integers(0, mx + 1, (n, s, s))
+    else:       # near-flat: small costs, ties and rounding-sensitive sums
+        refpad = mx // 3 + rng.integers(0, 2, (H + 32, W + 32))
+        ob = mx // 3 + rng.integers(0, 2, (n, s, s))
+    ys = rng.integers(0, H - s + 1, n)
+    xs = rng.integers(0, W - s + 1, n)
+    iy = np.clip(rng.integers(-4, 5, n), -(ys + 10), H + 10 - s - ys)
+    ix = np.clip(rng.integers(-4, 5, n), -(xs + 10), W + 10 - s - xs)
+    mvy0 = 4 * iy + rng.integers(-3, 4, n)
+    mvx0 = 4 * ix + rng.integers(-3, 4, n)
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+            for a in (refpad, ob, ys, xs, mvy0, mvx0, iy, ix)]
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+@pytest.mark.parametrize("size", (16, 32, 64))
+def test_affine_kernels_equal_plain(dev, size, bit_depth):
+    """affine_search (+ affine_dctif for the winner's prediction) against
+    its twin on noise and near-flat blocks at λ of QP 21, 29 and 37 (costs
+    bit for bit), and affine_dctif alone at every (qy, qx) in [−12, 11]²."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import me
+    from vvc_torch.enc.rdo import lambda_f32
+    for content in ("noise", "flat"):
+        args = _affine_inputs(dev, size, bit_depth, 96, size + bit_depth,
+                              content)
+        for qp in (21, 29, 37):
+            before = ops.COUNTS["affine_search"]
+            got, want = _both(me.affine_search, *args, lambda_f32(qp)[1],
+                              size, bit_depth)
+            assert ops.COUNTS["affine_search"] == before + 1
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32))
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b)
+    refpad, _, ys, xs, _, _, iy, ix = _affine_inputs(
+        dev, size, bit_depth, 576 // (size // 4) ** 2 + 1, 7, "noise")
+    n, nsb = ys.shape[0], size // 4
+    q = torch.arange(n * nsb * nsb, device=dev, dtype=torch.int32) % 576
+    qy = (q // 24 - 12).reshape(n, nsb, nsb).contiguous()
+    qx = (q % 24 - 12).reshape(n, nsb, nsb).contiguous()
+    got, want = _both(me.affine_dctif_pred, refpad, ys, xs, iy, ix, qy, qx,
+                      size, bit_depth)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_me_block_err_equal_plain(dev, bit_depth):
+    """me_block_err and the whole me_pred_v2 against the plain path at
+    240×416 (10-bit noise: block sums above 2^24); err bit for bit."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import me
+    rng = np.random.default_rng(bit_depth)
+    h, w = 240, 416
+    mx = (1 << bit_depth) - 1
+    ref = torch.from_numpy(rng.integers(0, mx + 1, (h, w)).astype(
+        np.int32)).to(dev)
+    cur = torch.from_numpy(rng.integers(0, mx + 1, (h, w)).astype(
+        np.int32)).to(dev)
+    pred = torch.from_numpy(rng.integers(0, mx + 1, ((h // 16) * (w // 16),
+                                                     16, 16)).astype(
+        np.int32)).to(dev)
+    got, want = _both(me.block_err, pred, cur, h // 16, w // 16)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    rp, rds = me.prep_ref(ref)
+    cds = me.prep_ref(cur)[1]
+    coarse = me.coarse_search(cds, rds[None])[16][0]
+    before = ops.COUNTS["me_block_err"]
+    got, want = _both(me.me_pred_v2, cur, rp, coarse, w, h, bit_depth,
+                      np.float32(3.7))
+    assert ops.COUNTS["me_block_err"] == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def test_4b_stream_equal_plain(dev):
+    """RA GOP 4 with every slice-4b option on the tool clip: the kernel
+    path's stream equals the plain path's, and the three 4b kernels
+    launched."""
+    from chip_smoke import tool_clip
+    from vvc_torch import ops
+    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.io.yuv import Frame
+    w, h = 192, 128
+    c = np.full((h // 2, w // 2), 128, np.int32)
+    clip = [Frame(y, c, c.copy(), 8) for y in tool_clip(5, w, h)]
+    kw = dict(qp=32, mode="ra", gop_size=4, affine=True, mctf=True,
+              bdof=True, dmvr=True, mmvd=True, ciip=True, gpm=True,
+              amvr=True, smvd=True, bcw=True)
+    before = dict(ops.COUNTS)
+    a = encode_sequence(clip, **kw)[0]
+    assert all(ops.COUNTS[k] > before[k]
+               for k in ("affine_search", "affine_dctif", "me_block_err"))
+    with ops.plain():
+        b = encode_sequence(clip, **kw)[0]
+    assert a == b

@@ -4,7 +4,8 @@ MIP and deblocking (Encoder.encode_frame; slice 2b adds LFNST and CCLM),
 and lossy encode_sequence with vvc's default tool set (slice 3 adds SAO,
 ALF and CC-ALF) are byte-equal, single-tile and with 2 tile columns, the
 reconstructions are equal, and vvc's decoder decodes them with every
-picture hash OK.  Options of later slices (LMCS and WPP: slice 2d) raise;
+picture hash OK.  Options of later slices (LMCS and WPP: slice 2d, also
+in Random Access) raise;
 MTT, ISP, MRL and dependent quantization are tests/test_torch_mtt.py's.
 Tolerance: exact (bytes and samples)."""
 import numpy as np
@@ -55,7 +56,7 @@ def test_lossless_ai_stream_byte_equal_and_decodes(w, h, kw):
 @pytest.mark.parametrize("kw,match", [({"lossless": False, "lmcs": True},
                                        "slice 2d"),
                                       ({"lossless": False, "mode": "ra",
-                                        "mctf": True}, "slice 4b"),
+                                        "lmcs": True}, "slice 2d"),
                                       ({"lossless": True, "target_kbps": 500},
                                        "rate-control item"),
                                       ({"lossless": True, "wpp": True},
@@ -155,13 +156,15 @@ def test_2b_encode_frame_smooth_lfnst_leaves():
 
 
 @pytest.mark.parametrize("option,match", [("lmcs", "slice 2d"),
-                                          ("bdof", "slice 4b")])
+                                          ("wpp", "slice 2d")])
 def test_lossy_options_of_later_slices_raise(option, match):
+    """LMCS (an SPS option) and WPP (a PPS option) raise at encode_frame."""
     from vvc_torch.enc.encoder import Encoder
     from vvc_torch.hls.ps import PPS as PortPPS, SPS as PortSPS
     from vvc_torch.io.synth import synth_frame as port_synth_frame
-    enc = Encoder(PortSPS(width=64, height=64, **LOSSY, **{option: True}),
-                  PortPPS(init_qp=32), device="cpu")
+    sps_kw = {option: True} if option != "wpp" else {}
+    enc = Encoder(PortSPS(width=64, height=64, **LOSSY, **sps_kw),
+                  PortPPS(init_qp=32, wpp=option == "wpp"), device="cpu")
     with pytest.raises(NotImplementedError, match=match) as err:
         enc.encode_frame(port_synth_frame(64, 64, 0), 0)
     assert "slice 3" not in str(err.value)

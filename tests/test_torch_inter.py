@@ -5,14 +5,16 @@ up per frame, so integer and fractional MVs win):
 
   * `me_v2_program`'s packed vectors (rd cost, direction, MVs, refs) equal
     `_me_v2_program`'s at 128×64, size 16 with the 8×8 children, for P
-    with 1 reference, B with 1+1 and B with 2+2 (one vvc compile each);
+    with 1 reference, B with 1+1 and B with 2+2, and with affine (the
+    affine flag and corner points too) for P with 1 reference and B with
+    1+1 on a zoom clip (one vvc compile each);
   * whole streams byte-equal to vvc's and decoded by vvc's decoder with
     every picture hash OK: LDP (3 frames, single tile and 2 tile columns),
     and, marked `slow` (their vvc compiles take minutes), LDB (3 frames)
     and RA with GOP 4 (5 frames: I, P and B with up to 2 refs per list);
   * a resumed RA encode (checkpoint at GOP boundaries) equals the
     uninterrupted one (port against port);
-  * the options of slice 4b raise;
+  * with each of several slice-4b options the SPS equals vvc's;
   * the host chroma decision of intra leaves (`_decide_chroma_modes`),
     which vvc's inter pictures never reach, equals vvc's.
 
@@ -46,14 +48,22 @@ def _clips(n: int):
 
 
 @pytest.mark.usefixtures("release_jax_programs")
-@pytest.mark.parametrize("n_l0,n_l1,is_b", [(1, 0, False), (1, 1, True),
-                                            (2, 2, True)],
-                         ids=["P_1ref", "B_1+1", "B_2+2"])
-def test_me_v2_program_packed_equal(n_l0, n_l1, is_b):
+@pytest.mark.parametrize("n_l0,n_l1,is_b,affine",
+                         [(1, 0, False, False), (1, 1, True, False),
+                          (2, 2, True, False), (1, 0, False, True),
+                          (1, 1, True, True)],
+                         ids=["P_1ref", "B_1+1", "B_2+2", "P_1ref_affine",
+                              "B_1+1_affine"])
+def test_me_v2_program_packed_equal(n_l0, n_l1, is_b, affine):
+    """Size 16 with the 8×8 children; with affine, the parent grid also
+    carries the affine search of reference 0 of each list (on the zoom
+    clip of tests/test_affine.py, where it changes decisions)."""
     import torch
     from vvc_torch.enc import me
     from vvc_torch.enc.inter_search import me_v2_program
     _, port = _clips(5)
+    if affine:
+        port = _zoom_clip(5)
     y = port[2].y
     refs = [port[i].y for i in (1, 0, 3, 4)][:n_l0 + n_l1]
     pads, dss = zip(*(ref_me._prep_ref(jnp.asarray(r), H, W) for r in refs))
@@ -62,7 +72,7 @@ def test_me_v2_program_packed_equal(n_l0, n_l1, is_b):
                                     ref_me.COARSE_R)
     want, want_c = _me_v2_program(jnp.asarray(y), jnp.stack(pads),
                                   coarse[16], jnp.int32(32), 16, 8, W, H,
-                                  n_l0, n_l1, is_b, False, True)
+                                  n_l0, n_l1, is_b, affine, True)
     t_pads, t_dss = zip(*(me.prep_ref(torch.from_numpy(r)) for r in refs))
     t_coarse = me.coarse_search(me.prep_ref(torch.from_numpy(y))[1],
                                 torch.stack(t_dss))
@@ -70,16 +80,30 @@ def test_me_v2_program_packed_equal(n_l0, n_l1, is_b):
                                   np.asarray(coarse[16]))
     got, got_c = me_v2_program(torch.from_numpy(y), torch.stack(t_pads),
                                t_coarse[16], 32, 16, 8, W, H, n_l0, n_l1,
-                               is_b, True)
+                               is_b, affine, True)
     for g, wv in ((got, want), (got_c, want_c)):
         np.testing.assert_array_equal(g.numpy().view(np.int32),
                                       np.asarray(wv).view(np.int32))
+    if affine:
+        n16 = (H // 16) * (W // 16)
+        aff = got.numpy()[8 * n16:9 * n16]
+        assert (aff == 4).any()                 # affine wins some blocks
+        return
     n8 = (H // 8) * (W // 8)
     mvx0 = got_c.numpy()[2 * n8:3 * n8]
     dirs = got_c.numpy()[n8:2 * n8]
     assert (mvx0 != 0).any() and (mvx0 % 4 != 0).any()   # sub-pel motion
     if is_b:
         assert set(np.unique(dirs)) > {1.0}
+
+
+def _zoom_clip(n: int):
+    """The port's frames of the zoom clip of tests/test_affine.py at
+    W×H."""
+    from tests.test_affine import _warp_frames
+    from vvc_torch.io.yuv import Frame as PortFrame
+    return [PortFrame(f.y.copy(), f.cb.copy(), f.cr.copy(), 8)
+            for f in _warp_frames(n, H=H, W=W, zoom=0.035)]
 
 
 def _equal_and_decodes(want, got, recons, n):
@@ -155,17 +179,36 @@ def test_ra_resume_equals_uninterrupted(tmp_path):
         np.testing.assert_array_equal(a.y, b.y)
 
 
-@pytest.mark.parametrize("kw,what", [({"affine": True}, "affine ME"),
-                                     ({"mctf": True}, "MCTF"),
-                                     ({"bdof": True}, "BDOF"),
-                                     ({"gpm": True}, "GPM"),
-                                     ({"mmvd": True}, "MMVD")])
+@pytest.mark.parametrize("kw,what", [({"affine": True}, "affine"),
+                                     ({"mctf": True}, "mctf"),
+                                     ({"bdof": True}, "bdof"),
+                                     ({"gpm": True}, "gpm"),
+                                     ({"mmvd": True}, "mmvd")])
 def test_slice_4b_options_raise(kw, what):
+    """Until slice 4b these options raised; now they run.  The SPS the
+    port's encode_sequence writes with the option (RA, GOP 4) is byte-equal
+    to the one vvc's encode_sequence builds from the same arguments, and it
+    carries the option's flag (MCTF has none: its SPS is the default's)."""
+    from vvc.hls.ps import SPS as RefSPS
+    from vvc.hls.write import write_sps as ref_write_sps
+    from vvc_torch.common.types import NalUnitType
     from vvc_torch.enc.encoder import encode_sequence as port_encode
+    from vvc_torch.io.nal import read_annexb
     _, port = _clips(2)
-    with pytest.raises(NotImplementedError, match="slice 4b") as err:
-        port_encode(port, qp=32, mode="ra", gop_size=4, device="cpu", **kw)
-    assert what in str(err.value)
+    bs, _, _ = port_encode(port, qp=32, mode="ra", gop_size=4, device="cpu",
+                           **kw)
+    sps = [n.payload for n in read_annexb(bs)
+           if n.nal_type == NalUnitType.SPS]
+    flags = {k: v for k, v in kw.items() if k != "mctf"}
+    want = ref_write_sps(RefSPS(
+        width=W, height=H, bit_depth=8, ctu_size=64, deblocking=True,
+        mts_intra=True, mip=True, lfnst=True, sao=True, alf=True, cclm=True,
+        **flags))
+    assert sps == [want]
+    assert (want != ref_write_sps(RefSPS(
+        width=W, height=H, bit_depth=8, ctu_size=64, deblocking=True,
+        mts_intra=True, mip=True, lfnst=True, sao=True, alf=True,
+        cclm=True))) == (what != "mctf")
 
 
 def test_decide_chroma_modes_equal():

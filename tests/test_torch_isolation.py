@@ -2,8 +2,10 @@
 encodes — lossless encode_sequence, a lossy Encoder.encode_frame with
 MTS, MIP and deblocking, one with LFNST and CCLM too, a lossy
 encode_sequence with the default tool set (SAO, ALF and CC-ALF on), one
-with MTT and ISP (and MRL and dependent quantization) too, and inter
-encode_sequence in LDP and RA — no JAX module and no module of the
+with MTT and ISP (and MRL and dependent quantization) too, inter
+encode_sequence in LDP and RA, and RA with the ten slice-4b options
+(affine, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD, BCW) — no JAX
+module and no module of the
 JAX package `vvc` is loaded; and the entry points, given no device, ask
 for CUDA and raise where CUDA is absent instead of falling back to the
 CPU."""
@@ -47,6 +49,12 @@ bs6, _, stats6 = encode_sequence(frames, qp=32, mtt=True, isp=True,
 bs7, _, _ = encode_sequence(frames[:1], qp=32, mtt=True, isp=True, mrl=True,
                             dep_quant=True, device="cpu")
 lossy_ok = lossy_ok and bool(len(bs6) > 0 and len(bs7) > 0)
+tools4b = dict(affine=True, mctf=True, bdof=True, dmvr=True, mmvd=True,
+               ciip=True, gpm=True, amvr=True, smvd=True, bcw=True)
+bs8, _, stats8 = encode_sequence(clip, qp=32, mode="ra", gop_size=4,
+                                 device="cpu", **tools4b)
+ok4b = bool(len(bs8) > 0 and all("inter_tools" in s for s in stats8
+                                 if s["slice_type"] != 2))
 inter_ok = bool(len(bs4) > 0 and len(bs5) > 0
                 and [s["slice_type"] for s in stats4] == [2, 1, 1]
                 and [s["slice_type"] for s in stats5] == [2, 0, 0, 0, 1])
@@ -56,6 +64,8 @@ if not torch.cuda.is_available():
                  lambda: encode_sequence(frames, qp=32),
                  lambda: encode_sequence(clip[:2], qp=32, mode="ldp"),
                  lambda: encode_sequence(frames, qp=32, mtt=True, isp=True),
+                 lambda: encode_sequence(clip[:2], qp=32, mode="ldp",
+                                         affine=True),
                  lambda: Encoder(sps, PPS(init_qp=32))):
         try:
             call()
@@ -65,7 +75,7 @@ print(json.dumps({
     "mods": sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
     "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok,
-    "inter_ok": inter_ok, "raised": raised,
+    "inter_ok": inter_ok, "ok4b": ok4b, "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
 
@@ -79,7 +89,7 @@ def test_port_imports_no_jax_and_no_vvc():
     res = json.loads(out.strip().splitlines()[-1])
     assert res["mods"] == []
     assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
-    assert res["inter_ok"]
+    assert res["inter_ok"] and res["ok4b"]
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
@@ -87,7 +97,8 @@ def test_port_imports_no_jax_and_no_vvc():
         "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one",
         "sao_stats", "alf_stats", "me_prep", "me_coarse", "me_int",
         "me_qpel", "ref_lines_rect", "intra_pred_all_rect",
-        "intra_pred_one_rect")}
+        "intra_pred_one_rect", "affine_search", "affine_dctif",
+        "me_block_err")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 5
+        assert len(res["raised"]) == 6
         assert all("CUDA is not available" in r for r in res["raised"])

@@ -1,4 +1,4 @@
-// Window motion estimation of the inter search: four kernels.
+// Window motion estimation of the inter search and of MCTF: five kernels.
 //
 // Replace the device functions of vvc/enc/me.py that the inter search's
 // program (2) runs for every P and B picture (jitted jnp/lax programs on
@@ -7,6 +7,8 @@
 //   me_coarse <- :108 _coarse_program  full search on ds4, 17x17 offsets
 //   me_int    <- :150 _gather_windows, :156 _win_centers, :167 _int_refine
 //   me_qpel   <- :203 _qpel_refine     49 quarter-pel offsets, DCTIF + SATD
+//   me_block_err <- the tail of :423 me_pred_v2 (MCTF): prediction plane and
+//                the per-16x16-block float32 mean of (pred - cur)^2
 // Their plain twins are in vvc_torch/enc/me.py; the float32 costs are
 // bit-equal to vvc's on XLA-CPU: XLA's own log is read from a table
 // (mvb[|d|] = fma(log(1+|d|), 2/ln 2, 1), built on the host), the costs
@@ -17,7 +19,8 @@
 // Bounds (1080p inter picture): me_prep and me_coarse move a few MB (bytes);
 // me_int does 81 SSEs of s*s samples per block and me_qpel 7 horizontal
 // and 49 vertical 8-tap passes plus 49 SATDs per block (integer operations,
-// CUDA cores).
+// CUDA cores); me_block_err reads the prediction and the picture and writes
+// the plane once (bytes).
 #include <cuda_runtime.h>
 
 namespace {
@@ -420,6 +423,43 @@ __global__ void me_qpel_kernel(const int* __restrict__ refpad,
         ver_pass(hor, filt, S, kb / 7 - 3, i / S, i % S, maxv);
 }
 
+// ---------------------------------------------------------------------------
+// me_block_err: one CTA of 256 threads per 16x16 block (raster order).  Each
+// thread writes one sample of the prediction plane and its squared
+// difference; thread 0 then sums the 256 squares in vvc's float32 order
+// (read from the LLVM IR and x86 object code of its me_pred_v2 program):
+// per row, the running total joins lane 0 of 8 lanes, the row's two parts
+// of 8 are added lane-wise, then ((l0+l4)+(l2+l6)) + ((l1+l5)+(l3+l7)).
+// Below 2^24 every partial sum is exact.  err = total * (1/256), exact.
+// ---------------------------------------------------------------------------
+__global__ void me_block_err_kernel(const int* __restrict__ pred,
+                                    const int* __restrict__ cur, int w,
+                                    int nx, int* __restrict__ plane,
+                                    float* __restrict__ err) {
+  __shared__ float sq[256];
+  const int n = blockIdx.x;
+  const int by = n / nx, bx = n % nx;
+  const int i = threadIdx.x;
+  const int y = by * 16 + (i >> 4), x = bx * 16 + (i & 15);
+  const int p = pred[(long long)n * 256 + i];
+  plane[(long long)y * (nx * 16) + x] = p;
+  const int d = p - cur[(long long)y * w + x];
+  sq[i] = (float)(d * d);
+  __syncthreads();
+  if (i == 0) {
+    float tot = 0.f;
+    for (int r = 0; r < 16; ++r) {
+      float l[8];
+      for (int j = 0; j < 8; ++j) l[j] = sq[r * 16 + j];
+      l[0] = __fadd_rn(tot, l[0]);
+      for (int j = 0; j < 8; ++j) l[j] = __fadd_rn(l[j], sq[r * 16 + 8 + j]);
+      tot = __fadd_rn(__fadd_rn(__fadd_rn(l[0], l[4]), __fadd_rn(l[2], l[6])),
+                      __fadd_rn(__fadd_rn(l[1], l[5]), __fadd_rn(l[3], l[7])));
+    }
+    err[n] = __fmul_rn(tot, 0.00390625f);
+  }
+}
+
 template <int S>
 int launch_int(const int* refpad, const int* ob, const int* ys, const int* xs,
                const int* cy, const int* cx, const float* mvb, int hp, int wp,
@@ -464,6 +504,14 @@ extern "C" int me_coarse_launch(const int* yds, const int* refds,
   const dim3 grid(n4x / 4, n4y / 4, nref);
   me_coarse_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       yds, refds, bias, g4, g8, g16, h4, w4, n4y, n4x);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int me_block_err_launch(const int* pred, const int* cur, int w,
+                                   int ny, int nx, int* plane, float* err,
+                                   void* stream) {
+  me_block_err_kernel<<<ny * nx, 256, 0, (cudaStream_t)stream>>>(
+      pred, cur, w, nx, plane, err);
   return (int)cudaGetLastError();
 }
 

@@ -13,10 +13,12 @@ and the trellis in the native recon core); and, slice 4a, translational P
 and B pictures in the LDP, LDB and RA GOPs (`mode="ldp" | "ldb" | "ra"`):
 the inter search of vvc_torch.enc.inter_search (csrc/me.cu), the DPB, the
 collocated motion field, per-layer QP offsets and GOP-boundary
-checkpoints.  The options of later slices raise NotImplementedError
-naming their slice: LMCS and WPP (2d), affine ME, MCTF and the host-only
-inter tools (4b), rate control.  Everything after the search is the host
-code of vvc, copied.
+checkpoints; slice 4b adds affine ME (csrc/affine.cu), the MCTF pre-filter
+of the temporal-layer-0 anchors (vvc_torch.enc.mctf) and the host inter
+tools BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD and BCW.  The options of
+later slices raise NotImplementedError naming their slice: LMCS and WPP
+(2d), rate control, the sharded path.  Everything after the search is the
+host code of vvc, copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -60,7 +62,7 @@ from vvc_torch.kernels.ccalf import apply_ccalf_delta, derive_ccalf
 from vvc_torch.kernels.deblock import deblock_frame
 from vvc_torch.kernels.sao import SAO_BO, SAO_EO, SAO_OFF, sao_filter_plane
 from vvc_torch.enc.alf_enc import decide_alf_frame
-from vvc_torch.enc.inter_search import SLICE_4B, rdo_inter_partition
+from vvc_torch.enc.inter_search import rdo_inter_partition
 from vvc_torch.enc.sao_enc import decide_sao_frame
 from vvc_torch.utils.trace import active as _trace
 from vvc_torch.enc.rdo import (rdo_partition, rdo_partition_dispatch,
@@ -85,13 +87,28 @@ def _check_sps(sps: SPS, pps: PPS) -> None:
     for on, what in ((sps.lmcs, "LMCS"), (pps.wpp, "WPP row substreams")):
         if on:
             raise _not_in_slice(what, _SLICE_2D)
-    for on, what in ((sps.affine, "affine ME"), (sps.bdof, "BDOF"),
-                     (sps.dmvr, "DMVR"), (sps.mmvd, "MMVD"),
-                     (sps.ciip, "CIIP"), (sps.gpm, "GPM"),
-                     (sps.amvr, "AMVR"), (sps.smvd, "SMVD"),
-                     (sps.bcw, "BCW")):
-        if on:
-            raise _not_in_slice(what, SLICE_4B)
+
+
+def _inter_tools(leaves, inter_cfg) -> dict:
+    """Leaves of an inter picture by slice-4b tool: affine, MMVD, CIIP,
+    GPM, BCW (a weight other than equal), AMVR (a coarser MVD tier), SMVD,
+    and the bi leaves that DMVR/BDOF refine (`bdof_dmvr`; `dmvr_moved`
+    where DMVR's mirrored search moved the MVs)."""
+    from vvc_torch.kernels.mc import _bi_eligible
+    refined = [l for l in leaves if l.pred == 1 and not l.affine
+               and l.gpm is None and not (l.bcw != 2 and l.inter_dir == 3)
+               and (inter_cfg.get("bdof") or inter_cfg.get("dmvr"))
+               and _bi_eligible(l, inter_cfg)]
+    return {"affine": sum(1 for l in leaves if l.affine),
+            "mmvd": sum(1 for l in leaves if l.mmvd is not None),
+            "ciip": sum(1 for l in leaves if l.ciip),
+            "gpm": sum(1 for l in leaves if l.gpm is not None),
+            "bcw": sum(1 for l in leaves if l.bcw != 2),
+            "amvr": sum(1 for l in leaves if l.imv > 0),
+            "smvd": sum(1 for l in leaves if l.smvd),
+            "bdof_dmvr": len(refined),
+            "dmvr_moved": sum(1 for l in refined
+                              if getattr(l, "_dmvr_d", (0, 0)) != (0, 0))}
 
 
 def _leaf_kinds(split_map, leaf_map, leaves) -> dict:
@@ -506,6 +523,8 @@ class Encoder:
         }
         if sps.max_mtt_depth_intra > 0 or sps.isp or sps.mrl:
             stats["leaf_kinds"] = _leaf_kinds(split_map, leaf_map, leaves)
+        if inter_slice:
+            stats["inter_tools"] = _inter_tools(leaves, inter_cfg)
         if sao_params is not None:
             # CTUs per SAO type (OFF, BO, EO) for Y, Cb, Cr
             stats["sao_types"] = [
@@ -547,9 +566,10 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     B), "ra" (random access hierarchical B) — reference:
     EncGOP::compressGOP GOP structures.  It runs vvc's default lossy tool
     set (MTS, MIP, LFNST, CCLM, deblocking, SAO, ALF, CC-ALF; lossless AI
-    too) with translational inter, and MTT, ISP, MRL and dependent
-    quantization (mtt=, isp=, mrl=, dep_quant=); the options of slices 2d
-    (LMCS, WPP) and 4b, rate control and the sharded path raise
+    too) with inter, MTT, ISP, MRL and dependent quantization (mtt=,
+    isp=, mrl=, dep_quant=) and the inter tools affine=, mctf=, bdof=,
+    dmvr=, mmvd=, ciip=, gpm=, amvr=, smvd=, bcw=; the options of slice 2d
+    (LMCS, WPP), rate control and the sharded path raise
     NotImplementedError naming the slice that brings them.
     recons/stats are returned in display (POC) order.
     checkpoint_path: encoder state (DPB recons, NALs so far) is written
@@ -564,8 +584,6 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         raise _not_in_slice("rate control", _RATE_CONTROL)
     if _precomputed_rdo is not None:
         raise _not_in_slice("the sharded search", "the multi-GPU slice")
-    if mctf and mode != "ai":
-        raise _not_in_slice("MCTF", SLICE_4B)
     h, w = frames[0].y.shape
     sps = SPS(width=w, height=h, bit_depth=bit_depth, ctu_size=ctu_size,
               deblocking=not lossless, mts_intra=not lossless,
@@ -665,6 +683,14 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         if ei < start_ei:
             continue
         f = frames[e.poc]
+        if mctf and mode != "ai" and e.tid == 0 and len(frames) > 1:
+            # MCTF pre-filter on temporal-layer-0 anchors (reference:
+            # EncTemporalFilter applied in EncLib::encodePrep)
+            from vvc_torch.enc.mctf import mctf_filter
+            from vvc_torch.utils import perf
+            with perf.phase("mctf"):
+                f = mctf_filter(frames, e.poc, qp, bit_depth,
+                                device=enc.device)
         refs_l0 = [(p + poc_base, dpb[p]) for p in e.l0]
         refs_l1 = [(p + poc_base, dpb[p]) for p in e.l1]
         # collocated picture: L1[0] for B, L0[0] for P (reference:

@@ -29,12 +29,15 @@ contraction fma(log(1+|Δx|), 1/ln 2, log(1+|Δy|)·(1/ln 2)), and the RD
 cost is fma(λ, rate + bits, sse) with the rate summed in XLA's order
 (`quant_rate`).
 
+With affine on, each size 16, 32 and 64 also runs the affine search of
+reference 0 of each list (`me.affine_search`, kernels `affine_search` and
+`affine_dctif`) around the translational winner, and `_finish` keeps the
+affine candidate where its DCT2 RD cost is lower (the corner points in the
+packed `cp0`/`cp1` fields).
+
 vvc's DP looks the intra costs up by int size in a dict keyed by (w, h)
 shapes, so it never finds them: every leaf of an inter picture is inter,
 and program (1) is computed and not read.  The port reproduces this.
-
-Options of later slices raise NotImplementedError naming the slice: the
-affine search (slice 4b).
 """
 from __future__ import annotations
 
@@ -62,22 +65,29 @@ ME_SIZES_MIN = 8       # integer ME at sizes >= this (8×8 searches a small
 # float32 bits of 1/ln 2: XLA folds log2(x) = log(x)·(1/ln 2)
 _INV_LN2 = np.array([0x3FB8AA3B], dtype=np.uint32).view(np.float32)[0]
 
-SLICE_4B = ("slice 4b (affine ME, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, "
-            "AMVR, SMVD, BCW)")
-
-
 @lru_cache(maxsize=None)
 def _log_dev(device: str) -> torch.Tensor:
     return torch.from_numpy(xla_log_f32().copy()).to(device)
 
 
-def _mvd_bits(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """vvc's `_finish` MVD bits log2(1 + |Δx|) + log2(1 + |Δy|) + 6 in
-    float32 as XLA-CPU computes it: fma(log(1+|Δx|), 1/ln 2,
-    log(1+|Δy|)·(1/ln 2)) + 6, XLA's float32 log."""
+def _log2_sum(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """log2(1 + |Δx|) + log2(1 + |Δy|) in float32 as XLA-CPU computes it:
+    fma(log(1+|Δx|), 1/ln 2, log(1+|Δy|)·(1/ln 2)), XLA's float32 log."""
     tab = _log_dev(str(dx.device))
     lx, ly = tab[dx.abs().long()], tab[dy.abs().long()]
-    return _fma_f32(_INV_LN2, lx, ly * _INV_LN2) + np.float32(6.0)
+    return _fma_f32(_INV_LN2, lx, ly * _INV_LN2)
+
+
+def _affine_bits(l2: torch.Tensor, dcp: torch.Tensor) -> torch.Tensor:
+    """vvc's `acpb = mvb + 6 + log2(1 + dcp_x) + log2(1 + dcp_y)` as XLA
+    computes it (optimised HLO, jax 0.9.0): it folds mvb's + 6 and the + 6
+    into + 12 on the log sum l2 (`_log2_sum`), and the backend contracts each
+    log2 term into an FMA: fma(log(1+dcp_y), 1/ln 2, fma(log(1+dcp_x),
+    1/ln 2, l2 + 12))."""
+    tab = _log_dev(str(dcp.device))
+    t = l2 + np.float32(12.0)
+    t = _fma_f32(_INV_LN2, tab[dcp[:, 0].long()], t)
+    return _fma_f32(_INV_LN2, tab[dcp[:, 1].long()], t)
 
 
 def _inter_rd(orig, pred, qp: int, bit_depth: int, extra_bits):
@@ -115,9 +125,10 @@ def _run_min(best, ent):
 
 
 def _finish(l0, l1, ob, qp: int, bit_depth: int, lam_m, ny: int, nx: int,
-            is_b: bool):
-    """vvc/enc/inter_search.py:183 `_finish` (affine off): per-block list
-    selection, bi check, RD and the packed float32 fields."""
+            is_b: bool, affine_res=None):
+    """vvc/enc/inter_search.py:183 `_finish`: per-block list selection, bi
+    check, RD, the affine RD where `affine_res` is a per-list list of (cost,
+    cp [N, 3, 2] (x, y), pred), and the packed float32 fields."""
     n = ob.shape[0]
     dev = ob.device
     zero = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -143,28 +154,48 @@ def _finish(l0, l1, ob, qp: int, bit_depth: int, lam_m, ny: int, nx: int,
     zc = torch.zeros((ny, 1), dtype=pmx.dtype, device=dev)
     pmx = torch.cat([zc, pmx[:, :-1]], 1).reshape(-1)
     pmy = torch.cat([zc, pmy[:, :-1]], 1).reshape(-1)
-    mvb = _mvd_bits(l0["mvx"] - pmx, l0["mvy"] - pmy)
+    # the MVD bits log2(1 + |Δx|) + log2(1 + |Δy|) + 6
+    l2 = _log2_sum(l0["mvx"] - pmx, l0["mvy"] - pmy)
+    mvb = l2 + np.float32(6.0)
     rd = _inter_rd(ob, pred, qp, bit_depth, mvb)
-    cp = torch.zeros(n * 6, dtype=torch.float32, device=dev)
+    aff = zero
+    cp0 = cp1 = torch.zeros((n, 3, 2), dtype=torch.int32, device=dev)
+    if affine_res:
+        if len(affine_res) == 2:
+            # list 1 only where strictly cheaper
+            adir = torch.where(affine_res[1][0] < affine_res[0][0], 2, 1
+                               ).to(torch.int32)
+            apred = torch.where((adir == 2)[:, None, None],
+                                affine_res[1][2], affine_res[0][2])
+            acp1 = affine_res[1][1]
+        else:
+            adir = torch.ones(n, dtype=torch.int32, device=dev)
+            apred = affine_res[0][2]
+            acp1 = cp1
+        acp0 = affine_res[0][1]
+        # rate proxy: the seed's MVD bits + affine flag/type/idx bins + the
+        # corner-delta MVDs
+        dcp = (acp0[:, 1] - acp0[:, 0]).abs()
+        ard = _inter_rd(ob, apred, qp, bit_depth, _affine_bits(l2, dcp))
+        upd = ard < rd
+        aff = torch.where(upd, 4, 0).to(torch.int32)
+        rd = torch.where(upd, ard, rd)
+        dirs = torch.where(upd, adir, dirs)
+        cp0, cp1 = acp0, acp1
     out = [rd, dirs, l0["mvx"], l0["mvy"], l0["ref"], l1["mvx"], l1["mvy"],
-           l1["ref"], zero]
-    return torch.cat([o.to(torch.float32).reshape(-1) for o in out]
-                     + [cp, cp])
-
-
-def _blocks(plane, nby: int, nbx: int, s: int):
-    return (plane[:nby * s, :nbx * s].reshape(nby, s, nbx, s)
-            .permute(0, 2, 1, 3).reshape(-1, s, s).contiguous())
+           l1["ref"], aff, cp0, cp1]
+    return torch.cat([o.to(torch.float32).reshape(-1) for o in out])
 
 
 def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
                   w: int, h: int, n_l0: int, n_l1: int, is_b: bool,
-                  children: bool):
-    """vvc/enc/inter_search.py:249 `_me_v2_program` (affine off): one size
-    class over every (list, ref) → (packed_parent, packed_child | None)
-    float32 vectors.  y [h, w] int32; refpad [R, h+2P, w+2P] (l0 refs then
-    l1); coarse [R, nc_y, nc_x, 2] full-pel (mvy, mvx) for this size (the
-    16-grid with children)."""
+                  affine: bool, children: bool):
+    """vvc/enc/inter_search.py:249 `_me_v2_program`: one size class over
+    every (list, ref) → (packed_parent, packed_child | None) float32
+    vectors.  y [h, w] int32; refpad [R, h+2P, w+2P] (l0 refs then l1);
+    coarse [R, nc_y, nc_x, 2] full-pel (mvy, mvx) for this size (the
+    16-grid with children); affine: the affine search of reference 0 of
+    each list at sizes 16, 32 and 64."""
     s = size
     dev = y.device
     if children:
@@ -178,7 +209,7 @@ def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
         ry = torch.arange(nye * s, device=dev).clamp(max=h - 1)
         rx = torch.arange(nxe * s, device=dev).clamp(max=w - 1)
         yp = y[ry][:, rx]
-    ob = _blocks(yp, nye, nxe, s).to(torch.int32)
+    ob = me_mod.raster_blocks(yp, nye, nxe, s).to(torch.int32)
     xs = (torch.arange(nxe, device=dev, dtype=torch.int32) * s).repeat(nye)
     ys = (torch.arange(nye, device=dev, dtype=torch.int32) * s
           ).repeat_interleave(nxe)
@@ -199,6 +230,7 @@ def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
 
     n_refs = (n_l0, n_l1 if is_b else 0)
     per_list = [None, None]
+    ref0_res = [None, None]
     child_list = [None, None]
     for li in (0, 1):
         best = cbest = None
@@ -210,6 +242,8 @@ def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
                 coarse[st, giy, gix, 1], lam_m, s, h, w)
             mvy, mvx, cost, pred = me_mod.qpel_refine(
                 rp, ob, ys, xs, iy, ix, lam_m, s, bit_depth)
+            if ridx == 0:
+                ref0_res[li] = (st, iy, ix, mvy, mvx)
             ent = dict(mvy=mvy, mvx=mvx, cost=cost, pred=pred,
                        ref=torch.full((n,), ridx, dtype=torch.int32,
                                       device=dev))
@@ -229,6 +263,24 @@ def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
         per_list[li] = best
         child_list[li] = cbest
 
+    aff_res = None
+    if affine and s in me_mod.AFFINE_ME_SIZES:
+        aff_res = []
+        for li in (0, 1):
+            if n_refs[li] == 0:
+                continue
+            st, iy, ix, mvy, mvx = ref0_res[li]
+            ac, da, db, apred = me_mod.affine_search(
+                refpad[st], ob, ys, xs, mvy, mvx, iy, ix, lam_m, s, bit_depth)
+            # CPMV (x, y) of the centre-rooted candidate field: cp1 − cp0 =
+            # (da, db); `//` floors, as jnp's does
+            h_ab, h_ba, h_s = (da + db) // 2, (db - da) // 2, (da - db) // 2
+            cp = torch.stack([
+                torch.stack([mvx + h_ba, mvy - h_ab], -1),
+                torch.stack([mvx + h_ab, mvy + h_ba], -1),
+                torch.stack([mvx - h_ab, mvy + h_s], -1)], 1)
+            aff_res.append((ac, cp.to(torch.int32), apred))
+
     # parent grids: slice synthetic rows/cols before the finish pass
     nyv, nxv = h // s, w // s
     if children and (nye != nyv or nxe != nxv):
@@ -238,17 +290,19 @@ def me_v2_program(y, refpad, coarse, qp: int, size: int, bit_depth: int,
                     .reshape((-1,) + tail))
         per_list = [None if d is None else {k: _sl(v) for k, v in d.items()}
                     for d in per_list]
-        ob_f = _blocks(y, nyv, nxv, s).to(torch.int32)
+        if aff_res is not None:
+            aff_res = [(_sl(c), _sl(cp), _sl(p)) for c, cp, p in aff_res]
+        ob_f = me_mod.raster_blocks(y, nyv, nxv, s).to(torch.int32)
     else:
         ob_f = ob
     packed = _finish(per_list[0], per_list[1], ob_f, qp, bit_depth, lam_m,
-                     nyv, nxv, is_b)
+                     nyv, nxv, is_b, aff_res)
     packed_c = None
     if children:
         cl = [None if d is None else
               {k: _reorder_children(v, nye, nxe, ny8, nx8)
                for k, v in d.items()} for d in child_list]
-        ob8 = _blocks(y, ny8, nx8, 8).to(torch.int32)
+        ob8 = me_mod.raster_blocks(y, ny8, nx8, 8).to(torch.int32)
         packed_c = _finish(cl[0], cl[1], ob8, qp, bit_depth, lam_m,
                            ny8, nx8, is_b)
     return packed, packed_c
@@ -285,9 +339,6 @@ def rdo_inter_partition(y_plane: np.ndarray, refs_l0, refs_l1, qp: int,
     plain path).  refs_l0 / refs_l1: lists of reference luma planes
     (nearest first).  Returns (split_map, leaf_map, leaves) with the inter
     fields set."""
-    if affine:
-        raise NotImplementedError(
-            f"vvc_torch: the affine search arrives with {SLICE_4B}")
     dev = resolve_device(device)
     h, w = y_plane.shape
     sizes = _candidate_sizes(ctu_size, min_cu)
@@ -318,7 +369,7 @@ def rdo_inter_partition(y_plane: np.ndarray, refs_l0, refs_l1, qp: int,
             continue                       # 8 rides the 16-program
         children = (s == 16 and 8 in me_sizes)
         pk, pkc = me_v2_program(y_dev, refpad, coarse[s], qp, s, bit_depth,
-                                w, h, n_l0, n_l1, is_b, children)
+                                w, h, n_l0, n_l1, is_b, affine, children)
         packed_by_size[s] = pk
         if children:
             packed_by_size[8] = pkc

@@ -56,6 +56,9 @@ SOURCES = {
     "ref_lines_rect": "ref_lines.cu",
     "intra_pred_all_rect": "intra_pred.cu",
     "intra_pred_one_rect": "intra_pred.cu",
+    "affine_search": "affine.cu",
+    "affine_dctif": "affine.cu",
+    "me_block_err": "me.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

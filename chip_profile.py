@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--trace profile_trace.json]
                             [--lossy [3|2b|2a] | --inter | --mtt |
-                             --4b]
+                             --4b | --decode]
 
 Encodes a main path of `chip_smoke.py` — two synthetic 1920×1080 frames at
 QP 32 — after a small warm-up encode.  Without --lossy it is lossless
@@ -49,6 +49,13 @@ as above) and unprofiled.
 (mtt, isp, mrl, dep_quant, affine, mctf, bdof, dmvr, mmvd, ciip, gpm,
 amvr, smvd, bcw), twice: profiled (busy time and idle share as above) and
 unprofiled; each run also prints the leaves chosen per slice-4b tool.
+
+--decode is the decoder's wavefront path of `chip_smoke.py` [20]: the
+slice-3 stream of the two 1080p frames (lossy `encode_sequence` with the
+default tools, encoded first and not profiled) through
+`vvc_torch.dec.decoder.decode_stream(wavefront=True)`, twice: profiled
+(busy time, idle share and the device-time split by kernel as above) and
+unprofiled; each run also prints the waves per picture.
 
 Needs one CUDA card and exits non-zero without one, or when the trace
 holds no device activity.
@@ -99,6 +106,9 @@ def main() -> int:
     ap.add_argument("--4b", dest="s4b", action="store_true",
                     help="profile the slice-4b path (RA with bench_ra1080's "
                          "tools but LMCS)")
+    ap.add_argument("--decode", action="store_true",
+                    help="profile the wavefront decode of the slice-3 "
+                         "stream (2 frames)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -130,6 +140,19 @@ def main() -> int:
         encode_sequence(tool_frames(5, 416, 240), qp=32, mode="ra",
                         gop_size=4, **RA1080_TOOLS)
         frames = tool_frames(N_4B, W, H)
+    if args.decode:
+        from vvc_torch.dec import wavefront
+        from vvc_torch.dec.decoder import decode_stream
+        decode_stream(encode_sequence([synth_frame(416, 240, 0)], qp=32)[0],
+                      wavefront=True)
+        stream = encode_sequence(frames, qp=32)[0]
+        waves = []
+        inner_w = wavefront.reconstruct_leaves_wavefront
+
+        def spy_waves(*a, **kw):
+            waves.append(inner_w(*a, **kw))
+            return waves[-1]
+        wavefront.reconstruct_leaves_wavefront = spy_waves
     lossy = dict(deblocking=True, mts_intra=True, mip=True)
     if args.lossy == "2b":
         lossy.update(lfnst=True, cclm=True)
@@ -139,12 +162,14 @@ def main() -> int:
         Encoder(SPS(width=416, height=240, **lossy), PPS(init_qp=32)
                 ).encode_frame(synth_frame(416, 240, 0), 0)
         enc = Encoder(SPS(width=W, height=H, **lossy), PPS(init_qp=32))
-    elif not (args.inter or args.mtt or args.s4b):
+    elif not (args.inter or args.mtt or args.s4b or args.decode):
         encode_sequence([synth_frame(416, 240, 0)], qp=32,
                         lossless=lossless)
-    lossless = lossless and not (args.inter or args.mtt or args.s4b)
-    one_run = per_frame or args.inter or args.mtt or args.s4b
+    lossless = lossless and not (args.inter or args.mtt or args.s4b
+                                 or args.decode)
+    one_run = per_frame or args.inter or args.mtt or args.s4b or args.decode
     path = ("inter RA GOP8" if args.inter else
+            "wavefront decode of the slice-3 stream" if args.decode else
             "AI mtt+isp+mrl+dep_quant" if args.mtt else
             f"RA GOP{GOP_4B} slice 4b" if args.s4b else
             f"lossy {args.lossy}" if args.lossy else "lossless")
@@ -154,8 +179,13 @@ def main() -> int:
         perf.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        waves_run = []
         for fs in calls:
-            if per_frame:
+            if args.decode:
+                waves.clear()
+                decode_stream(stream, wavefront=True)
+                waves_run = list(waves)
+            elif per_frame:
                 for poc, f in enumerate(fs):
                     enc.encode_frame(f, poc)
             elif args.inter:
@@ -179,13 +209,14 @@ def main() -> int:
                 "size": f"{W}x{H}", "wall_s": wall,
                 "frames_per_s": len(frames) / wall,
                 "phases": perf.report(), "card": card,
-                **({"inter_tools": dict(tools)} if args.s4b else {})}
+                **({"inter_tools": dict(tools)} if args.s4b else {}),
+                **({"waves_per_picture": waves_run} if args.decode else {})}
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         rec = run("serial-profiled" if per_frame or args.inter or args.s4b
-                  else "pooled-profiled", [frames])
+                  or args.decode else "pooled-profiled", [frames])
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
     busy, n_dev = busy_seconds(args.trace)

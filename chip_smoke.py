@@ -18,14 +18,17 @@ dependent quantization on top of the defaults (slice 2c, two frames), and
 Random Access `encode_sequence(mode="ra", gop_size=16)` with bench_ra1080's
 tool set but LMCS — the 2c tools plus affine, MCTF, BDOF, DMVR, MMVD,
 CIIP, GPM, AMVR, SMVD and BCW — on a zoom, two-motion and fade clip
-(slice 4b, seventeen frames) — and checks what comes out:
+(slice 4b, seventeen frames) — then decodes through the port's decoder
+`vvc_torch.dec.decoder.decode_stream`: the slice-3 stream on the
+wavefront path through the decoder's kernels (slice 5), and the 4a, 2c
+and 4b streams on the host path — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
-  3. each of the twenty-four kernels against its plain version on the
-     card (exact equality; the quant_rate kernel's float rates, the filter
-     statistics and the motion search's costs bit for bit), at the main
-     paths' shapes, with CUDA-event times per 1080p frame (the SAO and
+  3. each of the encoder's twenty-four kernels against its plain version
+     on the card (exact equality; the quant_rate kernel's float rates, the
+     filter statistics and the motion search's costs bit for bit), at the
+     main paths' shapes, with CUDA-event times per 1080p frame (the SAO and
      ALF statistics on the recon of a 2b picture, after [7]; the four
      motion-search kernels per 1080p B picture with 2 refs per list; the
      three rect kernels, and the transforms and quant_rate at the rect
@@ -68,13 +71,28 @@ CIIP, GPM, AMVR, SMVD and BCW — on a zoom, two-motion and fade clip
   15. at 416×240 (2 frames), the slice-2c kernel streams byte-equal to
      the plain path's, single tile and 2 tile columns;
   16. the slice-4b main path (17 frames 1080p RA GOP 16 on `tool_clip`):
-     every one of the twenty-four kernels launched (these counts fill the
-     table for the three 4b kernels), NAL and slice types, PSNR and bytes
+     every one of the encoder's twenty-four kernels launched (these
+     counts fill the table for the three 4b kernels), NAL and slice types,
+     PSNR and bytes
      in range, the leaves chosen per 4b tool (affine must be among them),
      MCTF run, frames/s and the host phases;
   17. at 416×240 on the tool clip, the kernel path's streams byte-equal
      to the plain path's: LDP with affine (3 frames) and RA GOP 4 with the
-     ten 4b options (5 frames).
+     ten 4b options (5 frames);
+  19. the four decoder kernels (wave_ref_lines, dequant, wave_cclm,
+     wave_commit) against their plain versions at every call of a
+     wavefront decode of the [10] stream (exact), with CUDA-event times
+     per 1080p frame over all those calls, bound (bytes over 3.35 TB/s)
+     and plain time;
+  20. the decoder's main path: the [10] stream through
+     decode_stream(wavefront=True), counted — every hash OK, the frames
+     equal to the encoder's recons and to the host path's, each decoder
+     kernel launched once per group that needs it, frames/s on both
+     paths, waves per picture; and 416×240 lossless and 2-tile-column
+     streams, whose wavefront decode equals the plain path's;
+  21. the 1080p streams of [12], [14] and [16] through the host-path
+     decode_stream: every hash OK, frames equal to the encoder's recons,
+     frames/s.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -137,6 +155,11 @@ KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
 TOOLS_4B = dict(affine=True, mctf=True, bdof=True, dmvr=True, mmvd=True,
                 ciip=True, gpm=True, amvr=True, smvd=True, bcw=True)
 RA1080_TOOLS = dict(TOOLS_4B, mtt=True, isp=True, dep_quant=True, mrl=True)
+# slice 5: the kernels only the decoder's wavefront path launches, and the
+# ported kernels that path reuses
+KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
+DEC_REUSED = ("intra_pred_one", "mip_pred_all", "lfnst_inv",
+              "transform_inv", "luma_ds")
 # operations per sample and candidate of the affine search: the bilinear
 # (6 multiplies, 3 adds, the rounding's 3 and the clip's 2), the
 # difference, the 8x8 Hadamard's 6 add/subtracts and |.| + sum (2)
@@ -207,6 +230,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, match: str | None = None) -> float:
+    """Milliseconds of device time of one call of fn (after one call to
+    warm it up), by torch.profiler: the summed durations of its kernels,
+    copies and fills (only the kernels whose name holds `match`, where
+    given).  For launches too small to fill the card, whose CUDA-event
+    time is the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "vvc_torch", "_build", f"trace-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    return sum(float(e.get("dur", 0)) for e in events
+               if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and (match is None or match in e.get("name", ""))) * 1e-3
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -294,6 +342,251 @@ def grid_xy(size: int, w: int, h: int, dev):
           ).repeat_interleave(nx)
     xs = (torch.arange(nx, dtype=torch.int32, device=dev) * size).repeat(ny)
     return xs, ys
+
+
+def frames_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(p, q) for fa, fb in zip(a, b)
+        for p, q in zip(fa.planes(), fb.planes()))
+
+
+def decoder_phases(ops, stats, compare, kind, frames, bs3, recons3,
+                   host_streams, encode_sequence):
+    """[19]-[21]: the four decoder kernels against their plain versions at
+    the shapes of the [10] stream's leaves, with their times; the wavefront
+    decode of that stream (the main path), counted, and of a 416x240
+    lossless and 2-tile-column stream against the plain path; the 1080p
+    streams of [12], [14] and [16] through the host path.  Fills `stats`
+    for the decoder kernels; returns the main path's launches."""
+    import torch
+    from vvc_torch.dec import wavefront
+    from vvc_torch.dec.decoder import decode_stream
+    from vvc_torch.io.synth import synth_frame
+
+    t19 = time.perf_counter()
+    # 19. each decoder kernel against its plain version at every call of a
+    # wavefront decode of the [10] stream; the calls are kept (their small
+    # inputs, and the planes they read as they end) and replayed for times
+    names = ("build_ref_lines_wave", "dequant_batch", "predict_cclm_wave",
+             "commit_wave")
+    orig = {n: getattr(wavefront, n) for n in names}
+    calls = {k: [] for k in KERNELS_DEC}
+    work = {k: [0, 0] for k in KERNELS_DEC}          # bytes, operations
+
+    def ref_lines(plane, order, xs, ys, zis, s, bd):
+        got = orig["build_ref_lines_wave"](plane, order, xs, ys, zis, s, bd)
+        with ops.plain():
+            want = orig["build_ref_lines_wave"](plane, order, xs, ys, zis,
+                                                s, bd)
+        compare("wave_ref_lines", got, want)
+        n = xs.shape[0]
+        calls["wave_ref_lines"].append((plane, order, xs, ys, zis, s, bd))
+        # per leaf: 4S+1 samples and S+1 order units read, the positions,
+        # the 4S+3 line written; about 6 operations per sample
+        work["wave_ref_lines"][0] += n * ((4 * s + 1) * 4 + (s + 1) * 4 + 12
+                                          + (4 * s + 3) * 4)
+        work["wave_ref_lines"][1] += n * 6 * (4 * s + 3)
+        return got
+
+    def dequant(lv, qp, bd):
+        got = orig["dequant_batch"](lv, qp, bd)
+        with ops.plain():
+            want = orig["dequant_batch"](lv, qp, bd)
+        compare("dequant", got, want)
+        calls["dequant"].append((lv, qp, bd))
+        work["dequant"][0] += lv.numel() * 8
+        work["dequant"][1] += lv.numel() * 6
+        return got
+
+    ds_first = []
+
+    def cclm(ds, chroma, order, xs, ys, zis, var, s, bd, pred):
+        want = pred.clone()
+        with ops.plain():
+            orig["predict_cclm_wave"](ds, chroma, order, xs, ys, zis, var, s,
+                                      bd, want)
+        got = orig["predict_cclm_wave"](ds, chroma, order, xs, ys, zis, var,
+                                        s, bd, pred)
+        compare("wave_cclm", got, want)
+        if not ds_first:
+            ds_first.append(ds)
+        calls["wave_cclm"].append((chroma, order, xs, ys, zis, var, s, bd,
+                                   tuple(pred.shape)))
+        m = int((var != 0).sum())
+        # per CCLM leaf: its ds block read and its prediction written, the
+        # model's points (4 pairs) and the leaf's position; 4 B of variant
+        # for every leaf; about 4 operations per sample
+        work["wave_cclm"][0] += m * (s * s * 8 + 32 + 12) + 4 * xs.shape[0]
+        work["wave_cclm"][1] += m * 4 * s * s
+        return got
+
+    def commit(plane, order, pred, resi, xs, ys, zis, bdpcm, bd):
+        p2, o2 = plane.clone(), order.clone()
+        with ops.plain():
+            orig["commit_wave"](p2, o2, pred, resi, xs, ys, zis, bdpcm, bd)
+        orig["commit_wave"](plane, order, pred, resi, xs, ys, zis, bdpcm, bd)
+        compare("wave_commit", plane, p2)
+        compare("wave_commit", order, o2)
+        calls["wave_commit"].append((plane, order, pred, resi, xs, ys, zis,
+                                     bdpcm, bd))
+        n, s = pred.shape[0], pred.shape[1]
+        # pred and resi read, the plane's samples and the order map's units
+        # written, the positions and BDPCM flags read; 3 operations a sample
+        work["wave_commit"][0] += n * (s * s * 12 + max(1, s // 4) ** 2 * 4
+                                       + 16)
+        work["wave_commit"][1] += n * 3 * s * s
+        return plane
+
+    for n, f in zip(names, (ref_lines, dequant, cclm, commit)):
+        setattr(wavefront, n, f)
+    try:
+        dec19, info19 = decode_stream(bs3, wavefront=True)
+    finally:
+        for n in names:
+            setattr(wavefront, n, orig[n])
+    torch.cuda.synchronize()
+    check(all(info19["hash_ok"]) and frames_equal(dec19, recons3),
+          "[19] the checked wavefront decode differs from the encoder")
+    del dec19
+    scratch = {}
+
+    def plane_copy(t):
+        key = (t.data_ptr(), tuple(t.shape))
+        if key not in scratch:
+            scratch[key] = t.clone()
+        return scratch[key]
+
+    def replay(k):
+        if k == "wave_ref_lines":
+            for c in calls[k]:
+                wavefront.build_ref_lines_wave(*c)
+        elif k == "dequant":
+            for c in calls[k]:
+                wavefront.dequant_batch(*c)
+        elif k == "wave_cclm":
+            for chroma, order, xs, ys, zis, var, s, bd, shp in calls[k]:
+                pred = torch.zeros(shp, dtype=torch.int32, device=xs.device)
+                wavefront.predict_cclm_wave(ds_first[0], chroma, order, xs,
+                                            ys, zis, var, s, bd, pred)
+        else:
+            for plane, order, *rest in calls[k]:
+                wavefront.commit_wave(plane_copy(plane), plane_copy(order),
+                                      *rest)
+    # the kernels' times are device time (profiler): each launch holds a
+    # few leaves, so CUDA events around the replay read the host's launch
+    # rate, which is printed beside them; the plain versions' thousands of
+    # small operations are timed by CUDA events alone (one replay)
+    nfr = len(frames)
+    for k in KERNELS_DEC:
+        st = stats[k]
+        st["ms"] = device_ms(lambda: replay(k), f"{k}_kernel") / nfr
+        check(st["ms"] > 0, f"[19] the profiler saw no {k} kernel")
+        wall = cuda_ms(lambda: replay(k), iters=1, warmup=0) / nfr
+        with ops.plain():
+            st["plain_ms"] = cuda_ms(lambda: replay(k), iters=1,
+                                     warmup=0) / nfr
+        st["bytes"], st["ops"] = work[k][0] / nfr, work[k][1] / nfr
+        st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
+        print(f"[19] {k}: exact vs plain at all {len(calls[k])} calls of a "
+              f"2-frame 1080p wavefront decode; per 1080p frame (all its "
+              f"launches): kernel {st['ms']:.3f} ms of device time "
+              f"({wall:.3f} ms by CUDA events, launch-bound), plain "
+              f"{st['plain_ms']:.3f} ms by CUDA events, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}), library none",
+              flush=True)
+    del calls, scratch, ds_first
+    print(f"[19] done in {time.perf_counter() - t19:.1f} s", flush=True)
+    t20 = time.perf_counter()
+
+    # 20. the main path: the [10] stream (2 x 1080p AI QP32, the defaults)
+    # through decode_stream(wavefront=True), counted, then the host path
+    groups, waves = [], []
+    inner_g = wavefront._recon_group
+    inner_w = wavefront.reconstruct_leaves_wavefront
+
+    def spy_group(plane, order, g, words, qp, bd, cclm_ds=None):
+        groups.append((g.lossless, bool(g.has_lev.any()),
+                       g.cclm and cclm_ds is not None))
+        return inner_g(plane, order, g, words, qp, bd, cclm_ds)
+
+    def spy_waves(*a, **kw):
+        waves.append(inner_w(*a, **kw))
+        return waves[-1]
+    wavefront._recon_group = spy_group
+    wavefront.reconstruct_leaves_wavefront = spy_waves
+    try:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        dec20, info20 = decode_stream(bs3, wavefront=True)
+        torch.cuda.synchronize()
+        el_wf = time.perf_counter() - t0
+        launches20 = dict(ops.COUNTS)
+    finally:
+        wavefront._recon_group = inner_g
+        wavefront.reconstruct_leaves_wavefront = inner_w
+    t0 = time.perf_counter()
+    dec_h, info_h = decode_stream(bs3)
+    el_host = time.perf_counter() - t0
+    check(all(info20["hash_ok"]) and len(info20["hash_ok"]) == len(frames)
+          and all(info_h["hash_ok"]), f"[20] hashes {info20['hash_ok']} / "
+          f"{info_h['hash_ok']}")
+    check(frames_equal(dec20, recons3) and frames_equal(dec20, dec_h),
+          "[20] wavefront frames != the encoder's recons or the host path's")
+    expected = {"wave_ref_lines": len(groups), "wave_commit": len(groups),
+                "dequant": sum(not ll and lev for ll, lev, _ in groups),
+                "wave_cclm": sum(c for _, _, c in groups)}
+    for name in ops.COUNTS:
+        if name in expected:
+            check(launches20[name] == expected[name] > 0,
+                  f"{name}: {launches20[name]} launches on the wavefront "
+                  f"decode, expected {expected[name]}")
+        else:
+            check((launches20[name] > 0) == (name in DEC_REUSED),
+                  f"{name}: {launches20[name]} launches on the wavefront "
+                  f"decode")
+    print(f"[20] wavefront decode of the [10] stream ({len(frames)} frames "
+          f"1920x1080 AI QP32, {len(bs3)} bytes) on {kind}: "
+          f"{el_wf:.2f} s, {len(frames) / el_wf:.4f} frames/s; host path "
+          f"{el_host:.2f} s, {len(frames) / el_host:.4f} frames/s; hashes "
+          f"OK, frames == encoder recons == host path; waves per picture "
+          f"{waves}; groups {len(groups)}; launches {launches20}",
+          flush=True)
+    del dec20, dec_h
+    small = [synth_frame(416, 240, t) for t in range(2)]
+    for kw in ({"lossless": True}, {"num_tile_cols": 2}):
+        bs, recons, _ = encode_sequence(small, qp=32, **kw)
+        before = ops.COUNTS["wave_commit"]
+        t0 = time.perf_counter()
+        a, ia = decode_stream(bs, wavefront=True)
+        el = time.perf_counter() - t0
+        check(ops.COUNTS["wave_commit"] > before,
+              f"[20] 416x240 {kw}: the wavefront kernels did not run")
+        with ops.plain():
+            b, ib = decode_stream(bs, wavefront=True)
+        check(all(ia["hash_ok"]) and all(ib["hash_ok"])
+              and frames_equal(a, b) and frames_equal(a, recons),
+              f"[20] 416x240 {kw}: kernel decode != plain decode")
+        print(f"[20] 416x240 2 frames {kw}: wavefront decode {el:.2f} s; "
+              f"kernel frames == plain frames == encoder recons, hashes OK",
+              flush=True)
+
+    print(f"[20] done in {time.perf_counter() - t20:.1f} s", flush=True)
+    # 21. the 1080p streams of [12], [14] and [16] through the host path
+    for phase, bs, recons in host_streams:
+        t0 = time.perf_counter()
+        dec, info = decode_stream(bs)
+        el = time.perf_counter() - t0
+        check(len(info["hash_ok"]) == len(recons) and all(info["hash_ok"])
+              and frames_equal(dec, recons),
+              f"[21] the [{phase}] stream: hashes {info['hash_ok']} or "
+              f"frames != the encoder's recons")
+        print(f"[21] host-path decode of the [{phase}] stream "
+              f"({len(recons)} frames 1920x1080, {len(bs)} bytes): "
+              f"{el:.2f} s, {len(recons) / el:.4f} frames/s; every hash OK, "
+              f"frames == encoder recons; POCs in decode order "
+              f"{info['decode_order_pocs']}", flush=True)
+    return launches20
 
 
 def main() -> int:
@@ -1162,8 +1455,8 @@ def main() -> int:
     del t4
     torch.cuda.synchronize()
     for name, st in stats.items():
-        if name in ("sao_stats", "alf_stats"):
-            continue                  # timed on a 2b recon after [7]
+        if name in ("sao_stats", "alf_stats") + KERNELS_DEC:
+            continue        # timed on a 2b recon after [7]; the decoder's in [19]
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
         print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
               f"launches): kernel {st['ms']:.3f} ms, plain "
@@ -1499,7 +1792,8 @@ def main() -> int:
     launches = dict(ops.COUNTS)
     phases = perf.report()
     for name in ops.COUNTS:
-        check((launches[name] > 0) == (name not in RECT_KERNELS + KERNELS_4B),
+        check((launches[name] > 0) == (name not in RECT_KERNELS + KERNELS_4B
+                                       + KERNELS_DEC),
               f"{name}: {launches[name]} launches on the slice-4a main "
               f"path")
     nals12 = read_annexb(bs12)
@@ -1571,7 +1865,8 @@ def main() -> int:
     launches14 = dict(ops.COUNTS)
     phases = perf.report()
     for name in ops.COUNTS:
-        check((launches14[name] > 0) == (name not in ME_KERNELS + KERNELS_4B),
+        check((launches14[name] > 0) == (name not in ME_KERNELS + KERNELS_4B
+                                         + KERNELS_DEC),
               f"{name}: {launches14[name]} launches on the slice-2c main "
               f"path")
     types = [n.nal_type for n in read_annexb(bs14)]
@@ -1652,8 +1947,9 @@ def main() -> int:
     launches16 = dict(ops.COUNTS)
     phases16 = perf.report()
     for name in ops.COUNTS:
-        check(launches16[name] > 0, f"{name}: {launches16[name]} launches "
-              f"on the slice-4b main path")
+        check((launches16[name] > 0) == (name not in KERNELS_DEC),
+              f"{name}: {launches16[name]} launches on the slice-4b main "
+              f"path")
     nals16 = read_annexb(bs16)
     types = [n.nal_type for n in nals16]
     slice_nals = [n for n in nals16 if n.nal_type in (0, 8)]
@@ -1708,7 +2004,12 @@ def main() -> int:
         print(f"[17] 416x240 {mode.upper()} {n} frames {sorted(kw)}: "
               f"{len(a)} bytes, {el:.2f} s; kernel stream == plain stream",
               flush=True)
-    print(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    # 19-21. the decoder
+    launches20 = decoder_phases(
+        ops, stats, compare, kind, frames, bs3, recons3,
+        ((12, bs12, recons12), (14, bs14, recons14), (16, bs16, recons16)),
+        encode_sequence)
+    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -1735,15 +2036,22 @@ def main() -> int:
            "intra_pred_one_rect": "vvc/kernels/intra.py:822",
            "affine_search": "vvc/enc/me.py:272",
            "affine_dctif": "vvc/enc/me.py:374",
-           "me_block_err": "vvc/enc/me.py:423"}
+           "me_block_err": "vvc/enc/me.py:423",
+           "wave_ref_lines": "vvc/dec/wavefront.py:78-82; "
+                             "vvc/kernels/intra.py:147",
+           "dequant": "vvc/kernels/quant.py:106",
+           "wave_cclm": "vvc/dec/wavefront.py:100-104; "
+                        "vvc/kernels/cclm.py:232",
+           "wave_commit": "vvc/dec/wavefront.py:111-114,134-138"}
     # launches: the rect kernels' from the slice-2c path [14], the 4b
-    # kernels' from the slice-4b path [16], the others' from the slice-4a
-    # path [12], as before
+    # kernels' from the slice-4b path [16], the decoder's from the
+    # wavefront decode [20], the others' from the slice-4a path [12]
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k],
               "launches": (launches14 if k in RECT_KERNELS
                            else launches16 if k in KERNELS_4B
+                           else launches20 if k in KERNELS_DEC
                            else launches12)[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],

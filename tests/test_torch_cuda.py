@@ -14,6 +14,8 @@ pytestmark = pytest.mark.cuda
 
 # the kernels only the slice-4b tools launch (affine search, MCTF)
 KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
+# the kernels only the decoder's wavefront path launches
+KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
 
 
 @pytest.fixture
@@ -251,7 +253,8 @@ def test_2b_search_vector_equal_plain(dev, cols):
                if k not in ("sao_stats", "alf_stats", "me_prep",
                             "me_coarse", "me_int", "me_qpel",
                             "ref_lines_rect", "intra_pred_all_rect",
-                            "intra_pred_one_rect") + KERNELS_4B)
+                            "intra_pred_one_rect") + KERNELS_4B
+               + KERNELS_DEC)
 
 
 @pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
@@ -518,7 +521,8 @@ def test_mtt_isp_search_vector_equal_plain(dev, cols):
     assert torch.equal(got, want)
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
-                            "me_coarse", "me_int", "me_qpel") + KERNELS_4B)
+                            "me_coarse", "me_int", "me_qpel") + KERNELS_4B
+               + KERNELS_DEC)
 
 
 def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
@@ -648,3 +652,107 @@ def test_4b_stream_equal_plain(dev):
     with ops.plain():
         b = encode_sequence(clip, **kw)[0]
     assert a == b
+
+
+# ---------------------------------------------------------------------------
+# Slice 5: the decoder's wavefront kernels
+# ---------------------------------------------------------------------------
+
+
+def _order_map(rng, h, w, tile_x=None):
+    """z-order indices with the rows below a cut pending, some units
+    pending at random and, with tile_x, the columns left of it another
+    tile's."""
+    big = np.iinfo(np.int32).max
+    order = rng.integers(0, 200, size=((h + 3) >> 2, (w + 3) >> 2)
+                         ).astype(np.int32)
+    order[int(rng.integers(1, order.shape[0])):, :] = big
+    order[rng.random(order.shape) < 0.1] = big
+    if tile_x is not None:
+        order[:, :tile_x >> 2] = big
+    return order
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+@pytest.mark.parametrize("s", (4, 8, 16, 32, 64))
+def test_wave_kernels_equal_plain(dev, s, bit_depth):
+    """wave_ref_lines, dequant, wave_cclm (chroma sizes) and wave_commit
+    (BDPCM included) against their plain versions, each launched once."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.dec.wavefront import commit_wave
+    from vvc_torch.kernels.cclm import predict_cclm_wave
+    from vvc_torch.kernels.intra import build_ref_lines_wave
+    from vvc_torch.kernels.quant import dequant_batch
+    rng = np.random.default_rng(10 * s + bit_depth)
+    h, w = 3 * s + 12, 4 * s + 20
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    plane = t(rng.integers(0, 1 << bit_depth, size=(h, w)))
+    order = t(_order_map(rng, h, w, 2 * s))
+    n = 40
+    xs = t(rng.integers(0, w - s + 1, n) & ~3)
+    ys = t(rng.integers(0, h - s + 1, n) & ~3)
+    zis = t(rng.integers(0, 260, n))
+    before = dict(ops.COUNTS)
+    got, want = _both(build_ref_lines_wave, plane, order, xs, ys, zis, s,
+                      bit_depth)
+    assert torch.equal(got, want)
+    lv = t(rng.integers(-300, 301, size=(n, s, s)))
+    got, want = _both(dequant_batch, lv, 37, bit_depth)
+    assert torch.equal(got, want)
+    if s <= 32:
+        var = t(rng.integers(0, 4, n))
+        pred0 = t(rng.integers(0, 9, size=(n, s, s)))
+        got, want = _both(lambda: predict_cclm_wave(
+            plane, plane.flip(0).contiguous(), order, xs, ys, zis, var, s,
+            bit_depth, pred0.clone()))
+        assert torch.equal(got, want)
+    # one leaf per cell of an s-grid: the leaves of a wave never overlap
+    gy, gx = np.divmod(np.arange(6), 3)
+    cx, cy, cz = t(gx * s), t(gy * s), t(np.arange(6) + 40)
+    bd = t(np.array([0, 1, 2, 0, 1, 2]))
+    pred = t(rng.integers(0, 1 << bit_depth, size=(6, s, s)))
+    resi = t(rng.integers(-64, 65, size=(6, s, s)))
+    outs = []
+    for plain in (False, True):
+        p, o = plane.clone(), order.clone()
+        if plain:
+            with ops.plain():
+                commit_wave(p, o, pred, resi, cx, cy, cz, bd, bit_depth)
+        else:
+            commit_wave(p, o, pred, resi, cx, cy, cz, bd, bit_depth)
+        torch.cuda.synchronize()
+        outs.append((p, o))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    for k in KERNELS_DEC:
+        want_n = 0 if (k == "wave_cclm" and s == 64) else 1
+        assert ops.COUNTS[k] == before[k] + want_n, k
+
+
+@pytest.mark.parametrize("kw", [{}, {"lossless": True},
+                                {"num_tile_cols": 2}])
+def test_wavefront_decode_equal_plain(dev, kw):
+    """A port-encoded 416×240 AI stream (lossy, lossless, 2 tile columns)
+    decodes through the wavefront kernels to the plain path's frames and
+    the encoder's recons, every hash OK, each decoder kernel launched."""
+    from vvc_torch import ops
+    from vvc_torch.dec.decoder import decode_stream
+    from vvc_torch.enc.encoder import encode_sequence
+    from vvc_torch.io.synth import synth_frame
+    frames = [synth_frame(416, 240, t) for t in range(2)]
+    bs, recons, _ = encode_sequence(frames, qp=32, **kw)
+    ops.reset_counts()
+    got, info = decode_stream(bs, wavefront=True)
+    assert all(info["hash_ok"]) and len(info["hash_ok"]) == 2
+    want_k = {"wave_ref_lines", "wave_commit"} | (
+        set() if kw.get("lossless") else {"dequant", "wave_cclm"})
+    assert all(ops.COUNTS[k] > 0 for k in want_k)
+    with ops.plain():
+        want, _ = decode_stream(bs, wavefront=True)
+    host, _ = decode_stream(bs)
+    for g, w_, h_, r in zip(got, want, host, recons):
+        for a, b, c, d in zip(g.planes(), w_.planes(), h_.planes(),
+                              r.planes()):
+            assert (a == b).all() and (a == c).all() and (a == d).all()
+

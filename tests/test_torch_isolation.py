@@ -4,11 +4,12 @@ MTS, MIP and deblocking, one with LFNST and CCLM too, a lossy
 encode_sequence with the default tool set (SAO, ALF and CC-ALF on), one
 with MTT and ISP (and MRL and dependent quantization) too, inter
 encode_sequence in LDP and RA, and RA with the ten slice-4b options
-(affine, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD, BCW) — no JAX
-module and no module of the
-JAX package `vvc` is loaded; and the entry points, given no device, ask
-for CUDA and raise where CUDA is absent instead of falling back to the
-CPU."""
+(affine, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD, BCW), then
+decoding the lossless and the lossy stream with the port's decode_stream
+on the host path and the wavefront path — no JAX module and no module of
+the JAX package `vvc` is loaded; and the entry points, given no device,
+ask for CUDA and raise where CUDA is absent instead of falling back to
+the CPU."""
 import json
 import os
 import subprocess
@@ -58,6 +59,16 @@ ok4b = bool(len(bs8) > 0 and all("inter_tools" in s for s in stats8
 inter_ok = bool(len(bs4) > 0 and len(bs5) > 0
                 and [s["slice_type"] for s in stats4] == [2, 1, 1]
                 and [s["slice_type"] for s in stats5] == [2, 0, 0, 0, 1])
+from vvc_torch.dec.decoder import decode_stream
+dec_ok = True
+for data, n in ((bs, 2), (bs3, 2)):
+    host, info = decode_stream(data, device="cpu")
+    wave, info_w = decode_stream(data, wavefront=True, device="cpu")
+    dec_ok = dec_ok and info["hash_ok"] == info_w["hash_ok"] == [True] * n
+    dec_ok = dec_ok and all((a == b).all() for f, g in zip(host, wave)
+                            for a, b in zip(f.planes(), g.planes()))
+dec_ok = dec_ok and all((f.y == d.y).all() for f, d in zip(
+    frames, decode_stream(bs, device="cpu")[0]))
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
@@ -66,7 +77,8 @@ if not torch.cuda.is_available():
                  lambda: encode_sequence(frames, qp=32, mtt=True, isp=True),
                  lambda: encode_sequence(clip[:2], qp=32, mode="ldp",
                                          affine=True),
-                 lambda: Encoder(sps, PPS(init_qp=32))):
+                 lambda: Encoder(sps, PPS(init_qp=32)),
+                 lambda: decode_stream(bs3, wavefront=True)):
         try:
             call()
         except RuntimeError as e:
@@ -75,7 +87,8 @@ print(json.dumps({
     "mods": sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
     "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok,
-    "inter_ok": inter_ok, "ok4b": ok4b, "raised": raised,
+    "inter_ok": inter_ok, "ok4b": ok4b, "dec_ok": dec_ok,
+    "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
 
@@ -89,7 +102,7 @@ def test_port_imports_no_jax_and_no_vvc():
     res = json.loads(out.strip().splitlines()[-1])
     assert res["mods"] == []
     assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
-    assert res["inter_ok"] and res["ok4b"]
+    assert res["inter_ok"] and res["ok4b"] and res["dec_ok"]
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
@@ -98,7 +111,8 @@ def test_port_imports_no_jax_and_no_vvc():
         "sao_stats", "alf_stats", "me_prep", "me_coarse", "me_int",
         "me_qpel", "ref_lines_rect", "intra_pred_all_rect",
         "intra_pred_one_rect", "affine_search", "affine_dctif",
-        "me_block_err")}
+        "me_block_err", "wave_ref_lines", "dequant", "wave_cclm",
+        "wave_commit")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 6
+        assert len(res["raised"]) == 7
         assert all("CUDA is not available" in r for r in res["raised"])

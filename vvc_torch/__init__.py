@@ -13,7 +13,9 @@ the caller passes ``device="cpu"``; there is no silent CPU fallback.
 Today the package runs lossless All-Intra encoding through
 `vvc_torch.enc.encoder.encode_sequence(frames, lossless=True)` (slice 1)
 and lossy All-Intra pictures with MTS, MIP and deblocking through
-`vvc_torch.enc.encoder.Encoder.encode_frame` (slice 2a).
+`vvc_torch.enc.encoder.Encoder.encode_frame` (slice 2a); later slices add
+the rest of the encoder and the decoder,
+`vvc_torch.dec.decoder.decode_stream` (slice 5).
 """
 
 __version__ = "0.1.0"

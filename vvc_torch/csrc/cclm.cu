@@ -28,6 +28,24 @@
 // chip_smoke.py counts them per launch), plus xs, ys, α and β (16 B per
 // block): 30.0 MB, about 0.009 ms at 3.35 TB/s, for the 24 launches
 // (4 sizes, 2 planes, 3 variants) of a 1080p frame.
+//
+// `wave_cclm` is the decoder's CCLM prediction for the S x S chroma leaves
+// of one wave, replacing the per-leaf host predict_cclm of
+// vvc/dec/wavefront.py:100-104 (vvc/kernels/cclm.py:232).  Unlike
+// `cclm_models` it follows gather_model_points with the decoder's
+// availability: a point (px, py) counts iff it lies in the plane and its
+// 4x4 unit's order-map entry is below the leaf's zi.  top_ok / left_ok
+// test the samples right above and left of the leaf's corner; the points
+// are taken in gather_model_points' order (the row above first), each
+// coordinate clamped into the plane and dropped if unavailable; fewer than
+// 4 points repeat as Python's `pts + pts` does (point j of the 4 is point
+// j mod count); then derive_model (stable sort by luma, the rounded means,
+// floor division, the ±2^17 clamp) and pred = clip(((α·ds) >> 13) + β).
+// A leaf whose variant is 0 is not a CCLM leaf: its prediction is left as
+// it is.  One CTA per leaf: thread 0 derives the model into shared memory,
+// then every thread writes S·S/blockDim samples.  Bound: bytes — the
+// leaf's ds block read and its prediction written (8 B per sample); a wave
+// holds few leaves, so it is launch-bound.
 #include <cuda_runtime.h>
 
 namespace {
@@ -117,7 +135,105 @@ __global__ void cclm_models_kernel(const int* __restrict__ ds,
   beta[b] = cmin - ((a * lmin) >> 13);
 }
 
+__global__ void wave_cclm_kernel(const int* __restrict__ ds,
+                                 const int* __restrict__ chroma, int ch,
+                                 int cw, const int* __restrict__ order,
+                                 int ow, const int* __restrict__ xs,
+                                 const int* __restrict__ ys,
+                                 const int* __restrict__ zis,
+                                 const int* __restrict__ variants, int cs,
+                                 int bit_depth, int* __restrict__ pred) {
+  __shared__ int model[2];
+  const int b = blockIdx.x;
+  const int variant = variants[b];
+  if (variant == 0) return;
+  const int x0 = xs[b], y0 = ys[b], zi = zis[b];
+  if (threadIdx.x == 0) {
+    auto avail = [&](int px, int py) {
+      return px >= 0 && px < cw && py >= 0 && py < ch &&
+             order[(long long)(py >> 2) * ow + (px >> 2)] < zi;
+    };
+    const bool top_ok = y0 > 0 && avail(x0, y0 - 1) && variant != 2;
+    const bool left_ok = x0 > 0 && avail(x0 - 1, y0) && variant != 3;
+    int lum[4], chr[4], cnt = 0;
+    for (int k = 0; k < 4 && (top_ok || left_ok); ++k) {
+      bool top;
+      int p;
+      if (top_ok && left_ok) {
+        top = k < 2;
+        p = (k & 1) ? (3 * cs) / 4 : cs / 4;
+      } else {
+        top = top_ok;
+        p = k * cs / 4;
+      }
+      const int px = top ? min(x0 + p, cw - 1) : x0 - 1;
+      const int py = top ? y0 - 1 : min(y0 + p, ch - 1);
+      if (avail(px, py)) {
+        const long long o = (long long)py * cw + px;
+        lum[cnt] = ds[o];
+        chr[cnt] = chroma[o];
+        ++cnt;
+      }
+    }
+    int a = 0, bb = 1 << (bit_depth - 1);
+    if (cnt > 0) {
+      for (int k = cnt; k < 4; ++k) {  // pts + pts until four
+        lum[k] = lum[k % cnt];
+        chr[k] = chr[k % cnt];
+      }
+      for (int i = 1; i < 4; ++i) {  // stable: an equal key stays behind
+        const int kl = lum[i], kc = chr[i];
+        int j = i - 1;
+        while (j >= 0 && lum[j] > kl) {
+          lum[j + 1] = lum[j];
+          chr[j + 1] = chr[j];
+          --j;
+        }
+        lum[j + 1] = kl;
+        chr[j + 1] = kc;
+      }
+      const int lmin = (lum[0] + lum[1] + 1) >> 1;
+      const int lmax = (lum[2] + lum[3] + 1) >> 1;
+      const int cmin = (chr[0] + chr[1] + 1) >> 1;
+      const int cmax = (chr[2] + chr[3] + 1) >> 1;
+      const int den = lmax - lmin;
+      bb = cmin;
+      if (den != 0) {
+        a = floor_div((cmax - cmin) * (1 << 13), den);
+        a = min(max(a, -(1 << 17)), (1 << 17) - 1);
+        bb = cmin - ((a * lmin) >> 13);
+      }
+    }
+    model[0] = a;
+    model[1] = bb;
+  }
+  __syncthreads();
+  const long long alpha = model[0];
+  const int beta = model[1], maxv = (1 << bit_depth) - 1;
+  int* o = pred + (long long)b * cs * cs;
+  for (int i = threadIdx.x; i < cs * cs; i += blockDim.x) {
+    const int y = i / cs, x = i - y * cs;
+    const int v = (int)((alpha * ds[(long long)(y0 + y) * cw + x0 + x]) >> 13)
+                  + beta;
+    o[i] = min(max(v, 0), maxv);
+  }
+}
+
 }  // namespace
+
+extern "C" int wave_cclm_launch(const int* ds, const int* chroma, int ch,
+                                int cw, const int* order, int ow,
+                                const int* xs, const int* ys, const int* zis,
+                                const int* variants, int n, int cs,
+                                int bit_depth, int* pred, void* stream) {
+  if (n < 0 || cs < 4 || cs > 32 || ow != (cw + 3) / 4)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  wave_cclm_kernel<<<n, 128, 0, (cudaStream_t)stream>>>(
+      ds, chroma, ch, cw, order, ow, xs, ys, zis, variants, cs, bit_depth,
+      pred);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int luma_ds_launch(const int* luma, int h, int w, int* out,
                               void* stream) {

@@ -34,6 +34,15 @@
 // search reads only the rate and the dequantised block, which both follow
 // from them.  Bound: bytes — 4 B read and 4 B written per coefficient,
 // plus 4 B per block.
+//
+// `dequant` is the decoder's dequantisation alone: levels read from the
+// stream -> coefficients, replacing vvc/kernels/quant.py:106 dequant_batch
+// where vvc's wavefront decoder calls it (vvc/dec/wavefront.py:123-125).
+// Per level, in int32 as jnp: deq = clip16((clamp(level·dscale,
+// ±2^29 >> sh6) << sh6) + 2^(shift-1)) >> shift), or << -shift where the
+// shift is not positive; level·dscale wraps as jnp's int32 product does.
+// One thread per coefficient over the N·H·W of a launch; bound: bytes (4 B
+// read and 4 B written per coefficient).
 #include <cuda_runtime.h>
 
 namespace {
@@ -136,6 +145,19 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
 
 bool side_ok(int s) { return s == 4 || s == 8 || s == 16 || s == 32 || s == 64; }
 
+__global__ void dequant_kernel(const int* __restrict__ level, long long total,
+                               int dscale, int sh6, int shift,
+                               int* __restrict__ deq) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int guard = (1 << 29) >> sh6;
+  const int p = (int)((unsigned)level[i] * (unsigned)dscale);
+  const int lv = (int)((unsigned)min(max(p, -guard), guard) << sh6);
+  const int c = shift > 0 ? (lv + (1 << (shift - 1))) >> shift
+                          : (int)((unsigned)lv << -shift);
+  deq[i] = min(max(c, -32768), 32767);
+}
+
 }  // namespace
 
 extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
@@ -156,5 +178,19 @@ extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
   quant_rate_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
       coeff, log_tab, base_tab, deq, rate, w, h, scale, offset, qbits,
       dscale, sh6, shift, log_scale, order);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dequant_launch(const int* level, int* deq, int n, int w, int h,
+                              int dscale, int sh6, int shift, void* stream) {
+  if (n < 0 || !side_ok(w) || !side_ok(h) || sh6 < 0 || sh6 > 29 ||
+      shift < -16 || shift > 30)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n * w * h;
+  if (total == 0) return 0;
+  const int threads = 256;
+  dequant_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                   (cudaStream_t)stream>>>(level, total, dscale, sh6, shift,
+                                           deq);
   return (int)cudaGetLastError();
 }

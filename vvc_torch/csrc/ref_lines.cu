@@ -12,6 +12,22 @@
 // `ref_lines`; `ref_lines_rect_launch` the W x H one, counted as
 // `ref_lines_rect`.  Both run the one kernel.
 //
+// `wave_ref_lines_launch` (counted as `wave_ref_lines`) is the decoder's:
+// it replaces the per-leaf host build_ref_line of vvc/dec/wavefront.py:78-82
+// (vvc/kernels/intra.py:147) for the N square S x S leaves of one wave,
+// read from the plane reconstructed so far.  A sample is available iff it
+// lies inside the plane and its 4x4 unit's order-map entry is below the
+// leaf's z-order index zi (the sequential decoder's availability: the unit
+// was reconstructed and precedes the leaf).  Unavailable samples read 0;
+// then the substitution of spec 8.4.5.2.8 as build_ref_line does it: none
+// available -> every sample 1 << (bd - 1); else each position takes the
+// last available sample at or before it, positions before the first
+// available one take that one; C[4S+1] = C[4S+2] = C[4S].  One CTA per
+// leaf: each thread gathers samples and flags into shared memory, the
+// first available index is an atomicMin, and each thread then looks back
+// for its source (the line is at most 259 samples).  Bound: bytes, as the
+// encoder's entry; in practice launch-bound (a wave holds a few leaves).
+//
 // Bound: bytes.  One thread per output sample; each reads one plane sample
 // (neighbouring threads read neighbouring top samples) and writes one int.
 // The whole output is a few MB at 1080p, so the kernel is launch-bound in
@@ -76,4 +92,73 @@ extern "C" int ref_lines_rect_launch(const int* plane, int h, int w,
                                      int bw, int bh, int bit_depth, int* out,
                                      void* stream) {
   return launch(plane, h, w, xs, ys, n, bw, bh, bit_depth, out, stream);
+}
+
+namespace {
+
+constexpr int kMaxLine = 4 * 64 + 3;
+
+__global__ void wave_ref_lines_kernel(const int* __restrict__ plane, int ph,
+                                      int pw, const int* __restrict__ order,
+                                      int ow, const int* __restrict__ xs,
+                                      const int* __restrict__ ys,
+                                      const int* __restrict__ zis, int s,
+                                      int mid, int* __restrict__ out) {
+  __shared__ int c[kMaxLine];
+  __shared__ unsigned char av[kMaxLine];
+  __shared__ int first;
+  const int b = blockIdx.x;
+  const int x0 = xs[b], y0 = ys[b], zi = zis[b];
+  const int len = 4 * s + 1;  // the two pads copy C[4S]
+  if (threadIdx.x == 0) first = len;
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    int px, py;
+    bool ok;
+    if (i < 2 * s) {  // left: C[2S-1-k] = plane[y0+k][x0-1]
+      py = y0 + (2 * s - 1 - i);
+      px = x0 - 1;
+      ok = x0 > 0 && py < ph;
+    } else if (i == 2 * s) {  // corner
+      py = y0 - 1;
+      px = x0 - 1;
+      ok = x0 > 0 && y0 > 0;
+    } else {  // top: C[2S+1+k] = plane[y0-1][x0+k]
+      py = y0 - 1;
+      px = x0 + (i - 2 * s - 1);
+      ok = y0 > 0 && px < pw;
+    }
+    ok = ok && order[(long long)(py >> 2) * ow + (px >> 2)] < zi;
+    c[i] = ok ? plane[(long long)py * pw + px] : 0;
+    av[i] = ok;
+    if (ok) atomicMin(&first, i);
+  }
+  __syncthreads();
+  int* o = out + (long long)b * (len + 2);
+  for (int i = threadIdx.x; i < len + 2; i += blockDim.x) {
+    int v;
+    if (first == len) {
+      v = mid;
+    } else {
+      int j = min(i, len - 1);
+      while (j >= 0 && !av[j]) --j;
+      v = c[j >= 0 ? j : first];
+    }
+    o[i] = v;
+  }
+}
+
+}  // namespace
+
+extern "C" int wave_ref_lines_launch(const int* plane, int h, int w,
+                                     const int* order, int ow, const int* xs,
+                                     const int* ys, const int* zis, int n,
+                                     int s, int bit_depth, int* out,
+                                     void* stream) {
+  if (n < 0 || s < 4 || s > 64 || ow != (w + 3) / 4)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  wave_ref_lines_kernel<<<n, 128, 0, (cudaStream_t)stream>>>(
+      plane, h, w, order, ow, xs, ys, zis, s, 1 << (bit_depth - 1), out);
+  return (int)cudaGetLastError();
 }

@@ -330,3 +330,119 @@ def predict_cclm(ds: np.ndarray, chroma: np.ndarray, coded_c, cx0: int,
     blk = ds[cy0:cy0 + cs, cx0:cx0 + cs].astype(np.int64)
     pred = (alpha * blk >> CCLM_SHIFT) + beta
     return np.clip(pred, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The decoder's CCLM: the chroma leaves of one wave, with the model points
+# of gather_model_points under z-order availability
+# ---------------------------------------------------------------------------
+
+
+def predict_cclm_wave_plain(ds: torch.Tensor, chroma: torch.Tensor,
+                            order_map: torch.Tensor, xs: torch.Tensor,
+                            ys: torch.Tensor, zis: torch.Tensor,
+                            variants: torch.Tensor, cs: int, bit_depth: int,
+                            pred: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the `wave_cclm` kernel: predict_cclm for every leaf
+    whose variant is not 0, written into pred [N, cs, cs] in place (the
+    other leaves' rows are left as they are); returns pred."""
+    sel = torch.nonzero(variants != 0).flatten()
+    if sel.numel() == 0:
+        return pred
+    ch, cw = chroma.shape
+    dev = chroma.device
+    x0, y0 = xs[sel].long(), ys[sel].long()
+    zi, var = zis[sel].long(), variants[sel].long()
+    n = sel.numel()
+
+    def avail(px, py):
+        inside = (px >= 0) & (px < cw) & (py >= 0) & (py < ch)
+        o = order_map[py.clamp(0, ch - 1) >> 2, px.clamp(0, cw - 1) >> 2]
+        return inside & (o < zi.view(-1, *([1] * (px.dim() - 1))))
+
+    top_ok = (y0 > 0) & avail(x0, y0 - 1) & (var != 2)
+    left_ok = (x0 > 0) & avail(x0 - 1, y0) & (var != 3)
+    both = (top_ok & left_ok)[:, None]
+    k = torch.arange(4, device=dev)
+    p = torch.where(both, torch.tensor([cs // 4, 3 * cs // 4] * 2,
+                                       device=dev)[None, :],
+                    k[None, :] * cs // 4)
+    top = torch.where(both, k[None, :] < 2, top_ok[:, None].expand(n, 4))
+    px = torch.where(top, (x0[:, None] + p).clamp(max=cw - 1),
+                     (x0 - 1)[:, None])
+    py = torch.where(top, (y0 - 1)[:, None],
+                     (y0[:, None] + p).clamp(max=ch - 1))
+    ok = avail(px, py) & (top_ok | left_ok)[:, None]
+    cnt = ok.sum(1)
+    # the available points first, in order; point j of four is j mod count
+    rank = torch.where(ok, k[None, :], 4 + k[None, :]).argsort(dim=1)
+    pick = rank.gather(1, k[None, :] % cnt.clamp(min=1)[:, None])
+    qx, qy = px.gather(1, pick), py.gather(1, pick)
+    qy_c, qx_c = qy.clamp(0, ch - 1), qx.clamp(0, cw - 1)
+    lum = ds[qy_c, qx_c].to(torch.int32)
+    chr_ = chroma[qy_c, qx_c].to(torch.int32)
+    order = torch.sort(lum, dim=1, stable=True).indices
+    lum, chr_ = lum.gather(1, order), chr_.gather(1, order)
+    lmin = (lum[:, 0] + lum[:, 1] + 1) >> 1
+    lmax = (lum[:, 2] + lum[:, 3] + 1) >> 1
+    cmin = (chr_[:, 0] + chr_[:, 1] + 1) >> 1
+    cmax = (chr_[:, 2] + chr_[:, 3] + 1) >> 1
+    den = lmax - lmin
+    alpha = torch.where(den != 0, torch.div(
+        (cmax - cmin) << CCLM_SHIFT, den.clamp(min=1), rounding_mode="floor"),
+        0).clamp(-(1 << 17), (1 << 17) - 1)
+    beta = torch.where(den != 0, cmin - ((alpha * lmin) >> CCLM_SHIFT), cmin)
+    alpha = torch.where(cnt == 0, 0, alpha).long()
+    beta = torch.where(cnt == 0, 1 << (bit_depth - 1), beta).long()
+    r = torch.arange(cs, device=dev)
+    blk = ds[(y0[:, None] + r)[:, :, None], (x0[:, None] + r)[:, None, :]]
+    out = ((alpha[:, None, None] * blk.long()) >> CCLM_SHIFT) \
+        + beta[:, None, None]
+    pred[sel] = out.clamp(0, (1 << bit_depth) - 1).to(pred.dtype)
+    return pred
+
+
+def _cclm_wave_cuda(ds, chroma, order_map, xs, ys, zis, variants, cs: int,
+                    bit_depth: int, pred) -> torch.Tensor:
+    ops.check_cuda_i32("wave_cclm", ds, chroma, order_map, xs, ys, zis,
+                       variants, pred)
+    ch, cw = chroma.shape
+    n = xs.shape[0]
+    if ds.shape != chroma.shape or order_map.shape != ((ch + 3) >> 2,
+                                                       (cw + 3) >> 2):
+        raise ValueError("wave_cclm: ds, chroma and order map differ")
+    if (pred.shape != (n, cs, cs) or variants.shape != (n,)
+            or not 4 <= cs <= 32):
+        raise ValueError("wave_cclm: bad leaves, variants or size")
+    if n == 0:
+        return pred
+    fn = ops.lib("wave_cclm").wave_cclm_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    err = fn(ds.data_ptr(), chroma.data_ptr(), ch, cw, order_map.data_ptr(),
+             order_map.shape[1], xs.data_ptr(), ys.data_ptr(),
+             zis.data_ptr(), variants.data_ptr(), n, cs, bit_depth,
+             pred.data_ptr(), ops.stream_ptr(ds))
+    ops.launched("wave_cclm", err)
+    return pred
+
+
+def predict_cclm_wave(ds: torch.Tensor, chroma: torch.Tensor,
+                      order_map: torch.Tensor, xs: torch.Tensor,
+                      ys: torch.Tensor, zis: torch.Tensor,
+                      variants: torch.Tensor, cs: int, bit_depth: int,
+                      pred: torch.Tensor) -> torch.Tensor:
+    """CCLM predictions of N cs×cs chroma leaves (x0, y0, zi) of one wave
+    into pred [N, cs, cs] int32, in place, for the leaves whose variant
+    (1 LM, 2 LM_L, 3 LM_T) is not 0: gather_model_points with the
+    decoder's availability `order_map < zi`, derive_model, the linear
+    predictor on ds.  Replaces the per-leaf predict_cclm of
+    vvc/dec/wavefront.py:100-104.  CUDA tensor → csrc/cclm.cu
+    `wave_cclm`; CPU tensor or `ops.plain()` → the twin."""
+    if ops.use_kernel(ds):
+        return _cclm_wave_cuda(ds, chroma, order_map, xs, ys, zis, variants,
+                               cs, bit_depth, pred)
+    return predict_cclm_wave_plain(ds, chroma, order_map, xs, ys, zis,
+                                   variants, cs, bit_depth, pred)

@@ -672,6 +672,91 @@ def build_ref_lines_orig_np(plane: np.ndarray, xs: np.ndarray, ys: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# The decoder's reference lines: the N leaves of one wave, read from the
+# plane reconstructed so far with z-order availability
+# ---------------------------------------------------------------------------
+
+
+def build_ref_lines_wave_plain(plane: torch.Tensor, order_map: torch.Tensor,
+                               xs: torch.Tensor, ys: torch.Tensor,
+                               zis: torch.Tensor, size: int,
+                               bit_depth: int = 8) -> torch.Tensor:
+    """Plain twin of the `wave_ref_lines` kernel: build_ref_line for N
+    S×S leaves at once → [N, 4S+3] int32.  A sample is available iff it
+    lies in the plane and its 4×4 unit's order-map entry is below the
+    leaf's zi."""
+    s = size
+    h, w = plane.shape
+    dev = plane.device
+    xs, ys, zis = xs.long(), ys.long(), zis.long()
+    k = torch.arange(2 * s, device=dev)
+    lx = (xs - 1).clamp(min=0)
+    ty = (ys - 1).clamp(min=0)
+    ly = ys[:, None] + k                                        # [N, 2S]
+    lyc = ly.clamp(max=h - 1)
+    lok = ((xs > 0)[:, None] & (ly < h)
+           & (order_map[lyc >> 2, (lx >> 2)[:, None]] < zis[:, None]))
+    cok = (xs > 0) & (ys > 0) & (order_map[ty >> 2, lx >> 2] < zis)
+    tx = xs[:, None] + k
+    txc = tx.clamp(max=w - 1)
+    tok = ((ys > 0)[:, None] & (tx < w)
+           & (order_map[(ty >> 2)[:, None], txc >> 2] < zis[:, None]))
+    c = torch.cat([plane[lyc, lx[:, None]].flip(1), plane[ty, lx][:, None],
+                   plane[ty[:, None], txc]], dim=1)             # [N, 4S+1]
+    av = torch.cat([lok.flip(1), cok[:, None], tok], dim=1)
+    pos = torch.arange(4 * s + 1, device=dev).expand_as(c)
+    ix = torch.where(av, pos, -1).cummax(dim=1).values
+    first = av.to(torch.int32).argmax(dim=1)
+    ix = torch.where(ix < 0, first[:, None], ix)
+    c = torch.where(av.any(dim=1)[:, None], c.gather(1, ix),
+                    1 << (bit_depth - 1))
+    return torch.cat([c, c[:, -1:], c[:, -1:]], dim=1).to(torch.int32)
+
+
+def _ref_lines_wave_cuda(plane, order_map, xs, ys, zis, size: int,
+                         bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("wave_ref_lines", plane, order_map, xs, ys, zis)
+    h, w = plane.shape
+    n = xs.shape[0]
+    if order_map.shape != ((h + 3) >> 2, (w + 3) >> 2):
+        raise ValueError(f"wave_ref_lines: order map "
+                         f"{tuple(order_map.shape)} does not cover {h}x{w}")
+    if ys.shape != (n,) or zis.shape != (n,) or not 4 <= size <= 64:
+        raise ValueError("wave_ref_lines: bad positions or size")
+    out = torch.empty((n, 4 * size + 3), dtype=torch.int32,
+                      device=plane.device)
+    if n == 0:
+        return out
+    fn = ops.lib("wave_ref_lines").wave_ref_lines_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    err = fn(plane.data_ptr(), h, w, order_map.data_ptr(), order_map.shape[1],
+             xs.data_ptr(), ys.data_ptr(), zis.data_ptr(), n, size,
+             bit_depth, out.data_ptr(), ops.stream_ptr(plane))
+    ops.launched("wave_ref_lines", err)
+    return out
+
+
+def build_ref_lines_wave(plane: torch.Tensor, order_map: torch.Tensor,
+                         xs: torch.Tensor, ys: torch.Tensor,
+                         zis: torch.Tensor, size: int,
+                         bit_depth: int = 8) -> torch.Tensor:
+    """[H,W] int32 plane, [⌈H/4⌉,⌈W/4⌉] int32 order map and N leaves
+    (x0, y0, zi) → [N, 4S+3] int32 reference lines, as build_ref_line
+    builds them with availability `order_map < zi`.  Replaces the per-leaf
+    host loop of vvc/dec/wavefront.py:78-82.  CUDA tensor →
+    csrc/ref_lines.cu `wave_ref_lines`; CPU tensor or `ops.plain()` → the
+    twin."""
+    if ops.use_kernel(plane):
+        return _ref_lines_wave_cuda(plane, order_map, xs, ys, zis, size,
+                                    bit_depth)
+    return build_ref_lines_wave_plain(plane, order_map, xs, ys, zis, size,
+                                      bit_depth)
+
+
+# ---------------------------------------------------------------------------
 # Batched torch prediction — all modes × all blocks of one size, for RDO
 # ---------------------------------------------------------------------------
 

@@ -119,9 +119,10 @@ def quant_batch(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
     return (torch.sign(c) * level).to(torch.int32)
 
 
-def dequant_batch(level: torch.Tensor, qp: int,
-                  bit_depth: int = 8) -> torch.Tensor:
-    """[N,H,W] int32 levels → int32 coefficients, 16-bit clipped."""
+def dequant_batch_plain(level: torch.Tensor, qp: int,
+                        bit_depth: int = 8) -> torch.Tensor:
+    """[N,H,W] int32 levels → int32 coefficients, 16-bit clipped (the
+    plain twin of the `dequant` kernel)."""
     n, h, w = level.shape
     scale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
     g = _DEQ_GUARD >> sh6
@@ -131,6 +132,35 @@ def dequant_batch(level: torch.Tensor, qp: int,
     else:
         c = lv << (-shift)
     return c.clamp(-32768, 32767).to(torch.int32)
+
+
+def _dequant_cuda(level: torch.Tensor, qp: int,
+                  bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("dequant", level)
+    n, h, w = level.shape
+    scale, sh6, shift = _dequant_params(h, w, int(qp), bit_depth)
+    out = torch.empty_like(level)
+    if level.numel() == 0:
+        return out
+    fn = ops.lib("dequant").dequant_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(level.data_ptr(), out.data_ptr(), n, w, h, scale, sh6, shift,
+             ops.stream_ptr(level))
+    ops.launched("dequant", err)
+    return out
+
+
+def dequant_batch(level: torch.Tensor, qp: int,
+                  bit_depth: int = 8) -> torch.Tensor:
+    """[N,H,W] int32 levels → int32 coefficients, 16-bit clipped: port of
+    vvc/kernels/quant.py:106, the decoder's dequantisation (the RD search
+    fuses it into `quant_rate`).  CUDA tensor → csrc/quant_rate.cu
+    `dequant`; CPU tensor or `ops.plain()` → dequant_batch_plain."""
+    if ops.use_kernel(level):
+        return _dequant_cuda(level, qp, bit_depth)
+    return dequant_batch_plain(level, qp, bit_depth)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +299,7 @@ def quant_rate_plain(coeff: torch.Tensor, qp: int, bit_depth: int = 8,
     h, w = coeff.shape[1:]
     rate = xla_block_sum(level_bits(lev.abs()), **_rate_order(h, w,
                                                                row_lanes))
-    return rate, dequant_batch(lev, qp, bit_depth)
+    return rate, dequant_batch_plain(lev, qp, bit_depth)
 
 
 @lru_cache(maxsize=None)

@@ -7,7 +7,8 @@ shared library per source, named by a hash of its text), and `lib(name)`
 loads the library that holds kernel `name` with ctypes.  The build happens at first use and reads only the package's own
 sources.
 
-Each kernel wrapper (in `vvc_torch.kernels` / `vvc_torch.enc.rdo`):
+Each kernel wrapper (in `vvc_torch.kernels`, `vvc_torch.enc.rdo`,
+`vvc_torch.enc.me` and `vvc_torch.dec.wavefront`):
   * on a CPU tensor runs the kernel's plain PyTorch version;
   * on a CUDA tensor launches the kernel, or raises — unless the caller is
     inside `plain()`, the one explicit way to run the plain version on the
@@ -59,6 +60,10 @@ SOURCES = {
     "affine_search": "affine.cu",
     "affine_dctif": "affine.cu",
     "me_block_err": "me.cu",
+    "wave_ref_lines": "ref_lines.cu",
+    "dequant": "quant_rate.cu",
+    "wave_cclm": "cclm.cu",
+    "wave_commit": "wavefront.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

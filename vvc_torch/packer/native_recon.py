@@ -158,10 +158,14 @@ def reconstruct_leaves_native_v2(leaves, recon_planes, qp: int,
     enc = orig_planes is not None
     origs = ([np.ascontiguousarray(p, dtype=np.int32) for p in orig_planes]
              if enc else [None, None, None])
-    if lmcs_chroma is not None:
-        raise NotImplementedError(
-            "vvc_torch: LMCS chroma scaling arrives with slice 2d (LMCS, WPP)")
     cs = None
+    if lmcs_chroma is not None:
+        from vvc_torch.kernels.lmcs import chroma_scale_factors
+        cs_fwd, cs_inv = chroma_scale_factors(lmcs_chroma, bit_depth)
+        cs_starts = np.ascontiguousarray(np.concatenate(
+            [[0], np.cumsum(np.asarray(lmcs_chroma, np.int64))]))
+        cs = (cs_starts, np.ascontiguousarray(cs_fwd),
+              np.ascontiguousarray(cs_inv))
     preds = pred_cache if pred_cache is not None else {}
     _run_component_v2(l, leaves, y_pl, coded_y, origs[0], qp, bit_depth,
                       enc, 0, meta, preds, dep_quant, LAMBDA_T)

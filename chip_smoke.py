@@ -15,13 +15,16 @@ and CC-ALF included (slice 3, two frames), and Random Access
 clip in global sub-pel motion (slice 4a, nine frames: I, P and seven B
 pictures), lossy `encode_sequence` with the MTT lattice, ISP, MRL and
 dependent quantization on top of the defaults (slice 2c, two frames), and
-Random Access `encode_sequence(mode="ra", gop_size=16)` with bench_ra1080's
+Random Access `encode_sequence(mode="ra", gop_size=8)` with bench_ra1080's
 tool set but LMCS — the 2c tools plus affine, MCTF, BDOF, DMVR, MMVD,
 CIIP, GPM, AMVR, SMVD and BCW — on a zoom, two-motion and fade clip
-(slice 4b, seventeen frames) — then decodes through the port's decoder
+(slice 4b, nine frames) — then decodes through the port's decoder
 `vvc_torch.dec.decoder.decode_stream`: the slice-3 stream on the
 wavefront path through the decoder's kernels (slice 5), and the 4a, 2c
-and 4b streams on the host path — and checks what comes out:
+and 4b streams on the host path — then runs slice 6: the sharded encode
+(`vvc_torch.shard.encode.encode_sequence_sharded`) over torch.distributed
+ranks, the halo-consuming tile-edge deblock, the 2-process DCN encode and
+the CLIs — and checks what comes out:
 
   1. card name and power limit (nvidia-smi);
   2. kernel build, with its seconds;
@@ -70,7 +73,7 @@ and 4b streams on the host path — and checks what comes out:
      search's device ms and the host phases;
   15. at 416×240 (2 frames), the slice-2c kernel streams byte-equal to
      the plain path's, single tile and 2 tile columns;
-  16. the slice-4b main path (17 frames 1080p RA GOP 16 on `tool_clip`):
+  16. the slice-4b main path (9 frames 1080p RA GOP 8 on `tool_clip`):
      every one of the encoder's twenty-four kernels launched (these
      counts fill the table for the three 4b kernels), NAL and slice types,
      PSNR and bytes
@@ -92,7 +95,26 @@ and 4b streams on the host path — and checks what comes out:
      streams, whose wavefront decode equals the plain path's;
   21. the 1080p streams of [12], [14] and [16] through the host-path
      decode_stream: every hash OK, frames equal to the encoder's recons,
-     frames/s.
+     frames/s;
+  22. the tile_edge_deblock kernel (slice 6) against its plain version
+     on 1080p stripes of 2, 3 and 4 tiles, 8 and 10 bit, QP 22 and 37
+     (exact), with CUDA-event times per 1080p frame of 4 stripes, bound
+     (bytes over 3.35 TB/s) and plain time;
+  23. slice 6's main path: `vvc_torch.shard.encode.encode_sequence_sharded`
+     on 2 frames 1920x1080 QP 32 with 2 tile columns, at the NCCL world
+     size (one rank per card) and on 2 and 4 gloo ranks of card 0: each
+     stream byte-equal to the single-card encode_sequence's, every rank's
+     search kernels launched, wall seconds and frames/s per world size;
+  24. `deblock_tile_edges` over 1080p stripes on 4 gloo ranks and on the
+     NCCL world: equal to the unsharded numpy pass over the boundary
+     edges, one tile_edge_deblock launch per rank, the halo exchange's
+     time per backend;
+  25. DCN: `encode_multihost` with 2 spawned processes on the card against
+     in-process, 4 frames 1920x1080 motion_clip, RA GOP 2: equal bytes,
+     every MD5 OK through the port's decoder, each child's kernels
+     launched;
+  26. the CLIs: `vvc_torch.cli.vvcenc` -> `vvcdec` at 416x240, 3 frames,
+     on the card: every POC [OK], decoded YUV == recon YUV.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -117,8 +139,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 W_HD, H_HD = 1920, 1080
-# the slice-4b path [16]: frames and GOP size (bench_ra1080: 17 and 16)
-N_4B, GOP_4B = 17, 16
+# the slice-4b path [16]: frames and GOP size (bench_ra1080: 17 and 16;
+# cut to 9 and 8 so that the script, slice 6's phases included, stays well
+# inside its time limit)
+N_4B, GOP_4B = 9, 8
 SIZES = (8, 16, 32, 64)
 MTS_SIZES = (8, 16, 32)      # stage B (MTS) and MIP sizes
 # launches per 1080p frame on the lossy main path: stage A at 4 sizes +
@@ -158,6 +182,12 @@ RA1080_TOOLS = dict(TOOLS_4B, mtt=True, isp=True, dep_quant=True, mrl=True)
 # slice 5: the kernels only the decoder's wavefront path launches, and the
 # ported kernels that path reuses
 KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
+# slice 6: the kernel only the sharded path's tile-edge deblock launches,
+# and the kernels of the sharded search (every rank's must launch)
+KERNELS_SHARD = ("tile_edge_deblock",)
+SHARD_SEARCH = ("ref_lines", "intra_pred_all", "satd", "transform_fwd",
+                "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
+                "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one")
 DEC_REUSED = ("intra_pred_one", "mip_pred_all", "lfnst_inv",
               "transform_inv", "luma_ds")
 # operations per sample and candidate of the affine search: the bilinear
@@ -587,6 +617,291 @@ def decoder_phases(ops, stats, compare, kind, frames, bs3, recons3,
               f"frames == encoder recons; POCs in decode order "
               f"{info['decode_order_pocs']}", flush=True)
     return launches20
+
+
+def _edge_frame(rng, h: int, w: int, n_tiles: int, bit_depth: int):
+    """A frame whose tile-boundary edges filter: a smooth ramp, a step at
+    each tile boundary that varies by 4-row group, light noise in some
+    groups."""
+    s = 1 << (bit_depth - 8)
+    wt = w // n_tiles
+    x = np.arange(w)[None, :]
+    y = np.arange(h)[:, None]
+    frame = (100 * s + (x // wt) * rng.integers(0, 12, (h // 4, 1)).repeat(
+        4, 0) * s + (x + y) // 16
+             + (rng.random((h // 4, 1)) < 0.3).repeat(4, 0)
+             * rng.integers(0, 3 * s + 1, (h, w)))
+    return np.clip(frame, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+def _gather_counts():
+    """Every rank's kernel launch counts, on every rank."""
+    import torch.distributed as dist
+    from vvc_torch import ops
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, dict(ops.COUNTS))
+    return counts
+
+
+def _sharded_encode_rank(frames, device):
+    """[23]'s rank body: encode_sequence_sharded, this rank's kernel counts
+    set to 0 just before it and read just after."""
+    import torch.distributed as dist
+    from vvc_torch import ops
+    from vvc_torch.shard.encode import encode_sequence_sharded
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = encode_sequence_sharded(frames, qp=32, num_tile_cols=2,
+                                  device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _gather_counts()
+    return (None if out is None else out[0]), counts, wall, \
+        dist.get_backend()
+
+
+def _deblock_rank(stripes, qp, bit_depth, device):
+    """[24]'s rank body: the halo exchange alone, timed (mean of 20, after
+    one warm-up), then deblock_tile_edges with the counts set to 0 just
+    before it and read just after."""
+    import torch.distributed as dist
+    from vvc_torch import ops
+    from vvc_torch.shard.filter import deblock_tile_edges
+    from vvc_torch.shard.halo import exchange_local
+    from vvc_torch.shard.mesh import make_mesh, mesh_index
+    mesh = make_mesh(dist.get_world_size(), 1)
+    x = torch.from_numpy(stripes).to(device)
+    own = x[mesh_index(mesh, ("tile",))[0]].contiguous()
+    exchange_local(mesh, own, 4)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        exchange_local(mesh, own, 4)
+    torch.cuda.synchronize()
+    halo_ms = (time.perf_counter() - t0) * 1e3 / 20
+    dist.barrier()
+    ops.reset_counts()
+    out = deblock_tile_edges(mesh, x, qp, bit_depth)
+    torch.cuda.synchronize()
+    counts = _gather_counts()
+    halos = [None] * dist.get_world_size()
+    dist.all_gather_object(halos, halo_ms)
+    return out.cpu().numpy(), counts, halos, dist.get_backend()
+
+
+def shard_phases(ops, stats, compare, kind, encode_sequence):
+    """[22]-[26]: the tile_edge_deblock kernel against its plain version on
+    1080p stripes; the sharded encode (slice 6's main path) at the NCCL
+    world size and on 2 and 4 gloo ranks of one card; the halo-consuming
+    tile-edge deblock; the 2-process DCN encode; the CLI round trip.
+    Returns the tile_edge_deblock launches of [24]'s 4-rank run."""
+    import contextlib
+    import io
+    import tempfile
+    from vvc_torch.cli import vvcdec, vvcenc
+    from vvc_torch.dec.decoder import decode_stream
+    from vvc_torch.io.synth import motion_clip, synth_frame
+    from vvc_torch.io.yuv import YuvWriter
+    from vvc_torch.kernels.deblock import BETA_TABLE, _filter_luma_edges_v
+    from vvc_torch.shard.dcn import encode_multihost
+    from vvc_torch.shard.filter import deblock_stripe, edge_params
+    from vvc_torch.shard.launch import run_ranks
+    from vvc_torch.shard.mesh import backend_for
+
+    dev = torch.device("cuda")
+    n_cards = torch.cuda.device_count()
+    rng = np.random.default_rng(22)
+
+    # 22. tile_edge_deblock against its plain version on 1080p stripes;
+    # timed per 1080p frame at [24]'s shapes (4 stripes of 480, QP 32,
+    # 8 bit: one call per stripe)
+    t22 = time.perf_counter()
+    n_cmp = 0
+    for n_tiles in (2, 3, 4):
+        wt = W_HD // n_tiles
+        for bd in (8, 10):
+            frame = torch.from_numpy(_edge_frame(rng, H_HD, W_HD, n_tiles,
+                                                 bd)).to(dev)
+            zeros = torch.zeros((H_HD, 4), dtype=torch.int32, device=dev)
+            for qp in (22, 32, 37):
+                if n_tiles < 4 and qp == 32 or n_tiles == 4 and qp != 32:
+                    continue
+                beta, tc, maxv = edge_params(qp, bd)
+                for i in range(n_tiles):
+                    x = frame[:, i * wt:(i + 1) * wt].contiguous()
+                    fl = (frame[:, i * wt - 4:i * wt].contiguous() if i
+                          else zeros)
+                    fr = (frame[:, (i + 1) * wt:(i + 1) * wt + 4]
+                          .contiguous() if i < n_tiles - 1 else zeros)
+                    args = (x, fl, fr, i > 0, i < n_tiles - 1, beta, tc,
+                            maxv)
+                    got = deblock_stripe(*args)
+                    with ops.plain():
+                        want = deblock_stripe(*args)
+                    compare("tile_edge_deblock", got, want)
+                    check(bool((got != x).any()) == (tc > 0 and n_tiles > 1),
+                          "[22] tile_edge_deblock changed nothing")
+                    n_cmp += 1
+                    if n_tiles != 4 or bd != 8:
+                        continue
+                    st = stats["tile_edge_deblock"]
+                    k_ms = cuda_ms(lambda: deblock_stripe(*args), iters=50)
+                    with ops.plain():
+                        p_ms = cuda_ms(lambda: deblock_stripe(*args))
+                    edges = int(i > 0) + int(i < n_tiles - 1)
+                    # the stripe and both halos read, the filtered stripe
+                    # written; about 40 integer operations per sample of
+                    # each edge's 8-column window
+                    add_bytes = (2 * H_HD * wt + 2 * H_HD * 4) * 4
+                    st["ms"] += k_ms
+                    st["plain_ms"] += p_ms
+                    st["bytes"] += add_bytes
+                    st["ops"] += edges * H_HD * 8 * 40
+    st = stats["tile_edge_deblock"]
+    st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
+    print(f"[22] tile_edge_deblock: exact vs plain at {n_cmp} calls (1080p "
+          f"stripes of 2, 3 and 4 tiles; 8 and 10 bit; QP 22 and 37, and "
+          f"32 at 4 tiles); per 1080p frame of 4 stripes at QP 32, 8 bit: "
+          f"kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+          f"{st['bound_ms']:.4f} ms ({st['bound_by']}), library none; "
+          f"{time.perf_counter() - t22:.1f} s", flush=True)
+
+    # 23. the slice's main path: encode_sequence_sharded on 2 frames
+    # 1920x1080 QP 32 with 2 tile columns, at the NCCL world size (one
+    # rank per card) and on 2 and 4 gloo ranks of card 0, each against
+    # the single-card encode_sequence
+    t23 = time.perf_counter()
+    frames = [synth_frame(W_HD, H_HD, t) for t in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs_ref = encode_sequence(frames, qp=32, num_tile_cols=2)[0]
+    torch.cuda.synchronize()
+    el_ref = time.perf_counter() - t0
+    print(f"[23] single-card encode_sequence(num_tile_cols=2), 2 frames "
+          f"1920x1080 QP32 on {kind}: {len(bs_ref)} bytes, {el_ref:.2f} s, "
+          f"{len(frames) / el_ref:.4f} frames/s", flush=True)
+    for world, backend in ((n_cards, backend_for(n_cards, None)),
+                           (2, "gloo"), (4, "gloo")):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bs, counts, wall, used = run_ranks(_sharded_encode_rank, world,
+                                           backend, "cuda", 600, frames)
+        total = time.perf_counter() - t0
+        check(used == backend, f"[23] backend {used}, asked {backend}")
+        check(bs == bs_ref, f"[23] sharded stream at {world} ranks "
+              f"({backend}) != the single-card stream")
+        for r, c in enumerate(counts):
+            check(all(c[k] > 0 for k in SHARD_SEARCH),
+                  f"[23] rank {r} of {world}: a search kernel did not run: "
+                  f"{c}")
+        print(f"[23] encode_sequence_sharded, {world} rank(s) on "
+              f"{backend} ({'one card each' if backend == 'nccl' else 'card 0, host-staged collectives'}): "
+              f"{len(bs)} bytes == single-card stream; {wall:.2f} s in the "
+              f"ranks, {len(frames) / wall:.4f} frames/s "
+              f"({total:.2f} s with spawn and set-up); search launches "
+              f"per rank {[sum(c[k] for k in SHARD_SEARCH) for c in counts]}",
+              flush=True)
+    print(f"[23] done in {time.perf_counter() - t23:.1f} s", flush=True)
+
+    # 24. the halo-consuming deblock: deblock_tile_edges over 1080p
+    # stripes on 4 gloo ranks of card 0 and on the NCCL world, against
+    # the unsharded numpy pass over the boundary edges
+    t24 = time.perf_counter()
+    launches24 = None
+    for world, backend in ((4, "gloo"),
+                           (n_cards, backend_for(n_cards, None))):
+        frame = _edge_frame(rng, H_HD, W_HD, world, 8)
+        wt = W_HD // world
+        stripes = np.stack([frame[:, i * wt:(i + 1) * wt]
+                            for i in range(world)])
+        out, counts, halos, used = run_ranks(_deblock_rank, world, backend,
+                                             "cuda", 300, stripes, 32, 8)
+        check(used == backend, f"[24] backend {used}, asked {backend}")
+        ref = frame.copy()
+        ev = np.zeros((H_HD, W_HD // 8 - 1), dtype=bool)
+        for i in range(1, world):
+            ev[:, i * wt // 8 - 1] = True
+        _filter_luma_edges_v(ref, ev, 8, int(BETA_TABLE[32]), (32, 8), 255)
+        check(np.array_equal(np.concatenate(list(out), axis=1), ref),
+              f"[24] sharded tile-edge deblock on {world} ranks != the "
+              f"unsharded pass")
+        check(all(c["tile_edge_deblock"] == 1 for c in counts),
+              f"[24] tile_edge_deblock launches per rank "
+              f"{[c['tile_edge_deblock'] for c in counts]}")
+        if launches24 is None:
+            launches24 = sum(c["tile_edge_deblock"] for c in counts)
+        print(f"[24] deblock_tile_edges over 1080p stripes, {world} rank(s) "
+              f"on {backend}: == the unsharded pass over the {world - 1} "
+              f"boundary edge(s) ({int((ref != frame).sum())} samples "
+              f"changed); one tile_edge_deblock launch per rank; halo "
+              f"exchange (4 columns each way) ms per rank "
+              f"{[round(h, 4) for h in halos]}", flush=True)
+    print(f"[24] done in {time.perf_counter() - t24:.1f} s", flush=True)
+
+    # 25. DCN: encode_multihost with 2 spawned processes on the card
+    # against in-process, 4 frames 1920x1080 motion_clip, RA, GOP 2
+    t25 = time.perf_counter()
+    clip = motion_clip(4, W_HD, H_HD)
+    kw = dict(n_hosts=2, gop_size=2, qp=32, mode="ra", return_counts=True)
+    t0 = time.perf_counter()
+    bs_mp, rec_mp, _, counts_mp = encode_multihost(clip, processes=True,
+                                                   timeout_s=900, **kw)
+    el_mp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bs_ip, _, _, counts_ip = encode_multihost(clip, processes=False, **kw)
+    el_ip = time.perf_counter() - t0
+    check(bs_mp == bs_ip, "[25] 2-process DCN stream != in-process stream")
+    for i, c in enumerate(counts_mp):
+        check(all(c[k] > 0 for k in SHARD_SEARCH + ME_KERNELS),
+              f"[25] child {i}: a kernel did not run: {c}")
+    dec, info = decode_stream(bs_mp)
+    check(len(info["hash_ok"]) == len(clip) and all(info["hash_ok"])
+          and frames_equal(dec, rec_mp),
+          f"[25] DCN stream: hashes {info['hash_ok']} or frames != recons")
+    print(f"[25] encode_multihost 4 frames 1920x1080 RA GOP2 QP32, 2 "
+          f"segments: 2 processes {el_mp:.2f} s ({len(clip) / el_mp:.4f} "
+          f"frames/s with spawn), in-process {el_ip:.2f} s "
+          f"({len(clip) / el_ip:.4f} frames/s); {len(bs_mp)} bytes, equal; "
+          f"decodes with every MD5 OK, POCs {info['decode_order_pocs']}; "
+          f"search + ME launches per child "
+          f"{[sum(c[k] for k in SHARD_SEARCH + ME_KERNELS) for c in counts_mp]}"
+          f" (in-process {[sum(c.values()) for c in counts_ip]}); "
+          f"{time.perf_counter() - t25:.1f} s", flush=True)
+
+    # 26. the CLIs: vvcenc -> vvcdec at 416x240, 3 frames, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.yuv")
+        with YuvWriter(src) as wr:
+            for t in range(3):
+                wr.write_frame(synth_frame(416, 240, t))
+        paths = {k: os.path.join(tmp, k) for k in ("out.266", "rec.yuv",
+                                                   "dec.yuv")}
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc_e = vvcenc.main(["-i", src, "-wdt", "416", "-hgt", "240",
+                                "-f", "3", "-q", "32", "-b",
+                                paths["out.266"], "-o", paths["rec.yuv"]])
+            rc_d = vvcdec.main(["-b", paths["out.266"], "-o",
+                                paths["dec.yuv"]])
+        el = time.perf_counter() - t0
+        lines = log.getvalue().splitlines()
+        poc_ok = [ln for ln in lines if ln.startswith("POC") and "[OK]" in ln]
+        with open(paths["rec.yuv"], "rb") as fa, \
+                open(paths["dec.yuv"], "rb") as fb:
+            same = fa.read() == fb.read()
+        check(rc_e == rc_d == 0 and len(poc_ok) == 3 and same
+              and not any("[ERROR]" in ln for ln in lines),
+              f"[26] CLI round trip: {lines}")
+        print(f"[26] vvcenc -> vvcdec 3 frames 416x240 QP32 on {kind}: "
+              f"{os.path.getsize(paths['out.266'])} bytes; every POC [OK]; "
+              f"decoded YUV == recon YUV; {el:.2f} s; "
+              f"{[ln for ln in lines if ln.startswith('SUMMARY')]}",
+              flush=True)
+    return launches24
 
 
 def main() -> int:
@@ -1455,8 +1770,9 @@ def main() -> int:
     del t4
     torch.cuda.synchronize()
     for name, st in stats.items():
-        if name in ("sao_stats", "alf_stats") + KERNELS_DEC:
-            continue        # timed on a 2b recon after [7]; the decoder's in [19]
+        if name in ("sao_stats", "alf_stats") + KERNELS_DEC + KERNELS_SHARD:
+            continue        # timed on a 2b recon after [7]; the decoder's in
+            # [19]; tile_edge_deblock in [22]
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
         print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
               f"launches): kernel {st['ms']:.3f} ms, plain "
@@ -1793,7 +2109,7 @@ def main() -> int:
     phases = perf.report()
     for name in ops.COUNTS:
         check((launches[name] > 0) == (name not in RECT_KERNELS + KERNELS_4B
-                                       + KERNELS_DEC),
+                                       + KERNELS_DEC + KERNELS_SHARD),
               f"{name}: {launches[name]} launches on the slice-4a main "
               f"path")
     nals12 = read_annexb(bs12)
@@ -1866,7 +2182,7 @@ def main() -> int:
     phases = perf.report()
     for name in ops.COUNTS:
         check((launches14[name] > 0) == (name not in ME_KERNELS + KERNELS_4B
-                                         + KERNELS_DEC),
+                                         + KERNELS_DEC + KERNELS_SHARD),
               f"{name}: {launches14[name]} launches on the slice-2c main "
               f"path")
     types = [n.nal_type for n in read_annexb(bs14)]
@@ -1931,9 +2247,9 @@ def main() -> int:
         print(f"[15] 416x240 2 frames mtt+isp+mrl+dep_quant, {cols} tile "
               f"column(s): {len(a)} bytes, {el:.2f} s; kernel stream == "
               f"plain stream", flush=True)
-    # 16. the slice-4b main path: Random Access GOP 16 at 1080p with
-    # bench_ra1080's tool set but LMCS, on the tool clip; its counts fill
-    # the table for the three 4b kernels
+    # 16. the slice-4b main path: Random Access (N_4B frames, GOP_4B) at
+    # 1080p with bench_ra1080's tool set but LMCS, on the tool clip; its
+    # counts fill the table for the three 4b kernels
     clip16 = tool_frames(N_4B, W_HD, H_HD)
     perf.reset()
     torch.cuda.synchronize()
@@ -1947,7 +2263,8 @@ def main() -> int:
     launches16 = dict(ops.COUNTS)
     phases16 = perf.report()
     for name in ops.COUNTS:
-        check((launches16[name] > 0) == (name not in KERNELS_DEC),
+        check((launches16[name] > 0) == (name not in KERNELS_DEC
+                                         + KERNELS_SHARD),
               f"{name}: {launches16[name]} launches on the slice-4b main "
               f"path")
     nals16 = read_annexb(bs16)
@@ -2009,7 +2326,9 @@ def main() -> int:
         ops, stats, compare, kind, frames, bs3, recons3,
         ((12, bs12, recons12), (14, bs14, recons14), (16, bs16, recons16)),
         encode_sequence)
-    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    # 22-26. slice 6: the sharded encode, the halo deblock, DCN, the CLIs
+    launches24 = shard_phases(ops, stats, compare, kind, encode_sequence)
+    print(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -2042,16 +2361,20 @@ def main() -> int:
            "dequant": "vvc/kernels/quant.py:106",
            "wave_cclm": "vvc/dec/wavefront.py:100-104; "
                         "vvc/kernels/cclm.py:232",
-           "wave_commit": "vvc/dec/wavefront.py:111-114,134-138"}
+           "wave_commit": "vvc/dec/wavefront.py:111-114,134-138",
+           "tile_edge_deblock": "vvc/shard/filter.py:35,101 (shard body "
+                                ":119-131)"}
     # launches: the rect kernels' from the slice-2c path [14], the 4b
     # kernels' from the slice-4b path [16], the decoder's from the
-    # wavefront decode [20], the others' from the slice-4a path [12]
+    # wavefront decode [20], tile_edge_deblock's from the 4-rank deblock
+    # [24], the others' from the slice-4a path [12]
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k],
               "launches": (launches14 if k in RECT_KERNELS
                            else launches16 if k in KERNELS_4B
                            else launches20 if k in KERNELS_DEC
+                           else {k: launches24} if k in KERNELS_SHARD
                            else launches12)[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],

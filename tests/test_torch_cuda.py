@@ -16,6 +16,8 @@ pytestmark = pytest.mark.cuda
 KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
 # the kernels only the decoder's wavefront path launches
 KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
+# the kernel only the sharded path's tile-edge deblock launches
+KERNELS_SHARD = ("tile_edge_deblock",)
 
 
 @pytest.fixture
@@ -254,7 +256,7 @@ def test_2b_search_vector_equal_plain(dev, cols):
                             "me_coarse", "me_int", "me_qpel",
                             "ref_lines_rect", "intra_pred_all_rect",
                             "intra_pred_one_rect") + KERNELS_4B
-               + KERNELS_DEC)
+               + KERNELS_DEC + KERNELS_SHARD)
 
 
 @pytest.mark.parametrize("bit_depth,cs,h,w", [(8, 64, 240, 416),
@@ -522,7 +524,7 @@ def test_mtt_isp_search_vector_equal_plain(dev, cols):
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
                             "me_coarse", "me_int", "me_qpel") + KERNELS_4B
-               + KERNELS_DEC)
+               + KERNELS_DEC + KERNELS_SHARD)
 
 
 def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
@@ -756,3 +758,39 @@ def test_wavefront_decode_equal_plain(dev, kw):
                               r.planes()):
             assert (a == b).all() and (a == c).all() and (a == d).all()
 
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_tile_edge_deblock_equal_plain(dev, bit_depth):
+    """tile_edge_deblock against deblock_stripe_plain on 1080-row stripes
+    (smooth sides with steps, and noise; halos that continue the stripe
+    with a small step), both edges, one edge and none, at QP 12 (tC = 0:
+    nothing changes), 22, 32, 37 and 51; one launch a call."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.shard.filter import deblock_stripe, edge_params
+    rng = np.random.default_rng(bit_depth)
+    s = 1 << (bit_depth - 8)
+    h, wt = 1080, 960
+    base = (100 * s + np.arange(wt)[None, :] // 16
+            + rng.integers(0, 12 * s, (h // 4, 1)).repeat(4, 0))
+    noise = rng.integers(0, 4 * s, (h, wt)) * (
+        rng.random((h // 4, 1)) < 0.4).repeat(4, 0)
+    xs = (base + noise).astype(np.int32)
+    x = torch.from_numpy(xs).to(dev)
+    # the neighbours continue the stripe with a small step: edges filter
+    fl = torch.from_numpy(xs[:, :4] - 3 * s).to(dev)
+    fr = torch.from_numpy(xs[:, -4:] + 2 * s).to(dev)
+    for qp in (12, 22, 32, 37, 51):
+        beta, tc, maxv = edge_params(qp, bit_depth)
+        for left, right in ((True, True), (True, False), (False, True),
+                            (False, False)):
+            before = ops.COUNTS["tile_edge_deblock"]
+            got, want = _both(deblock_stripe, x, fl, fr, left, right, beta,
+                              tc, maxv)
+            assert torch.equal(got, want), (qp, left, right)
+            assert ops.COUNTS["tile_edge_deblock"] == before + 1
+            assert torch.equal(got[:, 4:-4], x[:, 4:-4])
+            if left and right:
+                changed = bool((got != x).any())
+        assert changed == (tc > 0)

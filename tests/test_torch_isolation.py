@@ -6,10 +6,12 @@ with MTT and ISP (and MRL and dependent quantization) too, inter
 encode_sequence in LDP and RA, and RA with the ten slice-4b options
 (affine, MCTF, BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD, BCW), then
 decoding the lossless and the lossy stream with the port's decode_stream
-on the host path and the wavefront path — no JAX module and no module of
-the JAX package `vvc` is loaded; and the entry points, given no device,
-ask for CUDA and raise where CUDA is absent instead of falling back to
-the CPU."""
+on the host path and the wavefront path, a sharded encode on 2 gloo ranks
+(vvc_torch.shard), a DCN encode and the CLIs' encode → decode round trip
+(vvc_torch.cli) — no JAX module and no module of the JAX package `vvc` is
+loaded, in the process or in a rank; and the entry points, given no
+device, ask for CUDA and raise where CUDA is absent instead of falling
+back to the CPU."""
 import json
 import os
 import subprocess
@@ -69,6 +71,35 @@ for data, n in ((bs, 2), (bs3, 2)):
                             for a, b in zip(f.planes(), g.planes()))
 dec_ok = dec_ok and all((f.y == d.y).all() for f, d in zip(
     frames, decode_stream(bs, device="cpu")[0]))
+import os, tempfile
+import vvc_torch.shard.dcn, vvc_torch.shard.encode, vvc_torch.shard.filter
+import vvc_torch.shard.halo, vvc_torch.shard.launch, vvc_torch.shard.mesh
+from vvc_torch.cli import cfg, parcat, vvcdec, vvcenc
+from vvc_torch.io.yuv import YuvWriter
+from vvc_torch.shard.dcn import encode_multihost
+from vvc_torch.shard.launch import run_ranks
+from tests import torch_ranks
+(bs9, _, _), rank_mods = run_ranks(torch_ranks.encode_and_modules, 2, "gloo",
+                                   "cpu", 240, frames, qp=32,
+                                   num_tile_cols=1, threads=1)
+bs10, _, _ = encode_multihost(frames, n_hosts=2, gop_size=1,
+                              processes=False, device="cpu", qp=32)
+tmp = tempfile.mkdtemp()
+with YuvWriter(os.path.join(tmp, "in.yuv")) as wr:
+    for f in frames:
+        wr.write_frame(f)
+enc_args = ["-i", os.path.join(tmp, "in.yuv"), "-wdt", "64", "-hgt", "64",
+            "-f", "2", "-q", "32", "-b", os.path.join(tmp, "out.266"),
+            "-o", os.path.join(tmp, "rec.yuv")]
+dec_args = ["-b", os.path.join(tmp, "out.266"),
+            "-o", os.path.join(tmp, "dec.yuv")]
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    vvcenc.main(enc_args, device="cpu")
+    vvcdec.main(dec_args, device="cpu")
+shard_ok = bool(rank_mods == [] and bs9 == bs3 and bs10 == bs3 and open(
+    os.path.join(tmp, "dec.yuv"), "rb").read() == open(
+    os.path.join(tmp, "rec.yuv"), "rb").read())
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
@@ -78,16 +109,23 @@ if not torch.cuda.is_available():
                  lambda: encode_sequence(clip[:2], qp=32, mode="ldp",
                                          affine=True),
                  lambda: Encoder(sps, PPS(init_qp=32)),
-                 lambda: decode_stream(bs3, wavefront=True)):
+                 lambda: decode_stream(bs3, wavefront=True),
+                 lambda: encode_multihost(frames, n_hosts=2, gop_size=1,
+                                          processes=False),
+                 lambda: vvcenc.main(enc_args),
+                 lambda: vvcdec.main(dec_args)):
         try:
             call()
         except RuntimeError as e:
             raised.append(str(e))
+import shutil
+shutil.rmtree(tmp)
 print(json.dumps({
     "mods": sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
     "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok,
     "inter_ok": inter_ok, "ok4b": ok4b, "dec_ok": dec_ok,
+    "shard_ok": shard_ok,
     "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
@@ -103,6 +141,7 @@ def test_port_imports_no_jax_and_no_vvc():
     assert res["mods"] == []
     assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
     assert res["inter_ok"] and res["ok4b"] and res["dec_ok"]
+    assert res["shard_ok"]
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
@@ -112,7 +151,7 @@ def test_port_imports_no_jax_and_no_vvc():
         "me_qpel", "ref_lines_rect", "intra_pred_all_rect",
         "intra_pred_one_rect", "affine_search", "affine_dctif",
         "me_block_err", "wave_ref_lines", "dequant", "wave_cclm",
-        "wave_commit")}
+        "wave_commit", "tile_edge_deblock")}
     if not res["cuda"]:
-        assert len(res["raised"]) == 7
+        assert len(res["raised"]) == 10
         assert all("CUDA is not available" in r for r in res["raised"])

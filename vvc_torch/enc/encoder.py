@@ -17,8 +17,10 @@ checkpoints; slice 4b adds affine ME (csrc/affine.cu), the MCTF pre-filter
 of the temporal-layer-0 anchors (vvc_torch.enc.mctf) and the host inter
 tools BDOF, DMVR, MMVD, CIIP, GPM, AMVR, SMVD and BCW.  The options of
 later slices raise NotImplementedError naming their slice: LMCS and WPP
-(2d), rate control, the sharded path.  Everything after the search is the
-host code of vvc, copied.
+(2d), rate control.  The sharded encode (vvc_torch.shard.encode, slice 6)
+runs the search over a mesh of ranks and hands it in as
+`_precomputed_rdo`.  Everything after the search is the host code of vvc,
+copied.
 
 TPU-native analog of the reference's encoder stack
 (`VTM/source/Lib/EncoderLib/EncLib.cpp` → EncLib::encode;
@@ -569,8 +571,10 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     too) with inter, MTT, ISP, MRL and dependent quantization (mtt=,
     isp=, mrl=, dep_quant=) and the inter tools affine=, mctf=, bdof=,
     dmvr=, mmvd=, ciip=, gpm=, amvr=, smvd=, bcw=; the options of slice 2d
-    (LMCS, WPP), rate control and the sharded path raise
-    NotImplementedError naming the slice that brings them.
+    (LMCS, WPP) and rate control raise NotImplementedError naming the
+    slice that brings them.  _precomputed_rdo: per-frame search results
+    from the sharded encode (vvc_torch.shard.encode), which this call only
+    reconstructs and entropy-codes.
     recons/stats are returned in display (POC) order.
     checkpoint_path: encoder state (DPB recons, NALs so far) is written
     there after each temporal-layer-0 anchor; resume=True continues an
@@ -582,8 +586,6 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
         raise _not_in_slice("WPP row substreams", _SLICE_2D)
     if target_kbps > 0:
         raise _not_in_slice("rate control", _RATE_CONTROL)
-    if _precomputed_rdo is not None:
-        raise _not_in_slice("the sharded search", "the multi-GPU slice")
     h, w = frames[0].y.shape
     sps = SPS(width=w, height=h, bit_depth=bit_depth, ctu_size=ctu_size,
               deblocking=not lossless, mts_intra=not lossless,
@@ -612,7 +614,8 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
     stats = [None] * len(frames)
     order = gop_order(len(frames), mode, gop_size, intra_period)
 
-    if mode == "ai" and num_tile_cols == 1 and not lmcs:
+    if (mode == "ai" and num_tile_cols == 1 and not lmcs
+            and _precomputed_rdo is None):
         # AI pipeline: every frame's search is queued on the device first
         # (asynchronous launches); a host thread pool then runs transfer +
         # DP, recon and entropy per frame (frames are independent; the
@@ -640,7 +643,12 @@ def encode_sequence(frames, qp: int = 32, bit_depth: int = 8,
             stats[poc] = s
         return write_annexb(nals), recons, stats
 
-    if mode == "ai" and num_tile_cols == 1:
+    if _precomputed_rdo is not None:
+        # sharded path (vvc_torch.shard.encode): the per-(frame, tile)
+        # search already ran on the mesh; this call only assembles recon,
+        # entropy and NALs
+        rdo_results = _precomputed_rdo
+    elif mode == "ai" and num_tile_cols == 1:
         # one device search for the whole sequence; host recon/entropy
         # then proceeds per frame
         rdo_results = rdo_partition_frames(

@@ -225,7 +225,8 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
                 bit_depth: int = 8, try_mts: bool = False,
                 lossless: bool = False, try_mip: bool = False,
                 try_lfnst: bool = False, h: int | None = None,
-                mid: bool = False, vmapped: bool = False):
+                mid: bool = False, vmapped: bool = False,
+                sharded: bool = False):
     """[N,H,W] originals + [N,2H+2W+3] refs → (best_cost [N] f32,
     best_mode [N] i32, best_mts [N] i32, best_lfnst [N] i32); W = size,
     H = h (default: square).
@@ -240,7 +241,10 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     h != size is a rect MTT shape (wide-angle predictor; MIP and LFNST are
     square-only and must be off, as in vvc).  mid, vmapped: the blocks are
     a TT mid plane's / the search runs as vvc's vmapped tile program,
-    whose SSE sums XLA orders differently (sse_order)."""
+    whose SSE sums XLA orders differently (sse_order).  sharded: the
+    search runs as one of vvc's own programs (sharded_rdo_step's, or the
+    shard_map of the sharded encode), where XLA sums the 8×8 level rates
+    of stages A and B along the rows, as stage C's."""
     w = size
     h = w if h is None else h
     if w != h and (try_mip or try_lfnst):
@@ -273,7 +277,7 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     extra = mode_bits[short].reshape(-1) + np.float32(_MTS_BITS[0])
     cost_a = _rd_pass(resi, cand.reshape(-1, h, w), MTS_TR[0], qp,
                       lam, extra, bit_depth, "midA" if mid else "A",
-                      vmapped).reshape(n, RD_SHORTLIST)
+                      vmapped, sharded).reshape(n, RD_SHORTLIST)
     best_cost, best_k = _min_argmin(cost_a)
     best_k = best_k.long()
     best_mode = short.gather(1, best_k[:, None])[:, 0].to(torch.int32)
@@ -286,7 +290,7 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
         for mi in range(1, len(MTS_TR)):
             c_mi = _rd_pass(br, bp, MTS_TR[mi], qp, lam,
                             bbits + np.float32(_MTS_BITS[mi]), bit_depth,
-                            "midB" if mid else "B", vmapped)
+                            "midB" if mid else "B", vmapped, sharded)
             better = c_mi < best_cost
             best_cost = torch.where(better, c_mi, best_cost)
             best_mts = torch.where(better, torch.full_like(best_mts, mi),
@@ -331,15 +335,18 @@ def _gather_modes(preds: torch.Tensor, mip, short: torch.Tensor):
 
 
 def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int,
-             site: str = "A", vmapped: bool = False):
+             site: str = "A", vmapped: bool = False,
+             sharded: bool = False):
     """RD cost [M] f32 of coding residuals resi [M,H,W] over predictions
     pred with transform pair tr: fwd transform → quant + level rate +
     dequant → inverse → SSE, then sse + λ·(rate + extra_bits) rounded once
     (vvc/enc/rdo.py rd_pass).  site, vmapped: which of the program's SSE
-    sums this is (sse_order)."""
+    sums this is (sse_order); sharded: an 8×8 rate sum runs along the rows
+    (eval_blocks)."""
     th, tv = tr
     coeff = fwd_transform_batch(resi, bit_depth, th, tv)
-    rate, deq = quant_rate(coeff, qp, bit_depth)
+    rate, deq = quant_rate(coeff, qp, bit_depth,
+                           row_lanes=sharded and resi.shape[1:] == (8, 8))
     rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
     rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
     sse = _sse_f32(rec - pred - resi,
@@ -436,7 +443,8 @@ def _min_argmin(cost: torch.Tensor):
 def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
                       xs: torch.Tensor, ys: torch.Tensor, size: int,
                       best_mode: torch.Tensor, bit_depth: int,
-                      vmapped: bool = False) -> torch.Tensor:
+                      vmapped: bool = False,
+                      sharded: int = 0) -> torch.Tensor:
     """Device 4-way chroma decision (DM / LM / LM_L / LM_T) for N blocks of
     luma size `size` at (xs, ys): SSE on the original chroma samples, cb
     and cr costs added, argmin with the first index winning a tie.  Port of
@@ -464,14 +472,23 @@ def eval_chroma_modes(cb: torch.Tensor, cr: torch.Tensor, ds: torch.Tensor,
     DM sum at 16×16 and 32×32 takes `xla_block_sum`'s `tail` order (all
     columns but the last 8 lane-wise, then those 8 one by one); so does an
     LM sum at 32×32 whose model is not the constant; the other LM sums run
-    along the rows, as in the single-frame program."""
+    along the rows, as in the single-frame program.
+
+    sharded: the chunk size k of vvc's sharded program (0: not sharded).
+    For k ≥ 2 its orders are the vmapped program's (pass vmapped=True).
+    For k = 1 (a rank's vmap over one cell) they are the single-frame
+    program's, except that the DM sum at 16×16 and 32×32 takes the `tail`
+    order where the tile holds more than one block of the size (read at
+    k = 1 on 64×64 tiles, from the optimised LLVM IR and from decisions,
+    and on 64×128 tiles from decisions; ROADMAP §3)."""
     cs = size >> 1
     cxs, cys = xs >> 1, ys >> 1
     no_top = not bool((ys > 0).any())
     no_left = not bool((xs > 0).any())
     const = {1: no_top and no_left, 2: no_left, 3: no_top}
     lm_rows = {v: cs <= 16 or const[v] for v in const}
-    dm_order = {"tail": True} if vmapped and cs >= 16 else {}
+    dm_tail = vmapped or (sharded == 1 and xs.numel() > 1)
+    dm_order = {"tail": True} if dm_tail and cs >= 16 else {}
     lm_order = {v: {"tail": True} if vmapped and not lm_rows[v] else {}
                 for v in const}
     dm = torch.where(best_mode >= 67, 0, best_mode).to(torch.int32)
@@ -569,16 +586,18 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
                     ny: int, nx: int, mts_enabled: bool = True,
                     lossless: bool = False, lfnst_enabled: bool = True,
                     chroma=None, h: int | None = None,
-                    isp_enabled: bool = False, vmapped: bool = False):
+                    isp_enabled: bool = False, vmapped: bool = False,
+                    sharded: int = 0):
     """Whole-frame single-shape evaluation of W×H blocks (W = size, H = h,
     default square): plane [H,W] int32 → (cost [ny,nx] f32, mode, mts,
     lfnst, chroma_mode, isp [ny,nx] i32).  Port of vvc/enc/rdo.py:314.
     chroma: optional (cb, cr, ds) planes for the device chroma decision
     (square shapes only, as in vvc); vmapped: take the chroma sum orders of
-    vvc's vmapped program.  Rect shapes run with MIP, LFNST and the chroma
-    decision off; ISP (isp_enabled, lossy, both sides 8..32) tries both
-    directions on the winning non-MIP mode and clears MTS and LFNST where
-    it wins."""
+    vvc's vmapped program; sharded: the chunk size k of vvc's sharded
+    program (eval_blocks, eval_chroma_modes), 0 when not sharded.  Rect
+    shapes run with MIP, LFNST and the chroma decision off; ISP
+    (isp_enabled, lossy, both sides 8..32) tries both directions on the
+    winning non-MIP mode and clears MTS and LFNST where it wins."""
     s = size
     bh = s if h is None else h
     dev = plane.device
@@ -597,7 +616,8 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
         lfnst_allowed(s)
     cost, mode, mts, lfnst = eval_blocks(blocks, refs, s, qp, bit_depth,
                                          try_mts, lossless, try_mip,
-                                         try_lfnst, h=bh, vmapped=vmapped)
+                                         try_lfnst, h=bh, vmapped=vmapped,
+                                         sharded=sharded > 0)
     isp = torch.zeros_like(mode)
     if isp_enabled and not lossless and 8 <= s <= 32 and 8 <= bh <= 32:
         lam, _ = lambda_f32(qp)
@@ -617,7 +637,7 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
     if chroma is not None and square:
         cb, cr, ds = chroma
         cmode = eval_chroma_modes(cb, cr, ds, xs, ys, s, mode, bit_depth,
-                                  vmapped)
+                                  vmapped, sharded)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
             lfnst.reshape(ny, nx), cmode.reshape(ny, nx),
             isp.reshape(ny, nx))
@@ -666,7 +686,7 @@ def eval_mid_plane(plane: torch.Tensor, desc, qp: int, bit_depth: int,
 
 def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                          lfnst=True, cb=None, cr=None, isp=False,
-                         vmapped=False):
+                         vmapped=False, sharded=0):
     # the downsampled luma of this frame or tile (a tile's own plane, so
     # its left column clamps at the tile edge, as vvc's vmap over tiles)
     chroma = None if cb is None else (cb, cr, luma_ds_plane_dev(plane))
@@ -678,7 +698,8 @@ def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
                                             lossless=lossless,
                                             lfnst_enabled=lfnst,
                                             chroma=chroma, h=bh,
-                                            isp_enabled=isp, vmapped=vmapped)
+                                            isp_enabled=isp, vmapped=vmapped,
+                                            sharded=sharded)
     for desc in _tt_descriptors(sizes):
         kind, s = desc
         ny = (h // 32, h // s)[kind == "TV"]
@@ -721,16 +742,20 @@ def eval_all_sizes_frames(planes_vec: torch.Tensor, sizes: tuple, qp,
                           bit_depth: int, w: int, h: int, f: int,
                           lossless: bool = False, lfnst: bool = True,
                           with_chroma: bool = False,
-                          isp: bool = False) -> torch.Tensor:
+                          isp: bool = False, sharded: bool = False
+                          ) -> torch.Tensor:
     """[F] frames (or tile columns) → [F, per-frame packed length] int32.
     The JAX program's vmap over frames is a frame loop here; with F > 1 its
-    chroma sums take the vmapped program's orders (eval_chroma_modes)."""
+    chroma sums take the vmapped program's orders (eval_chroma_modes).
+    sharded: the F planes are one rank's chunk of vvc's sharded program
+    (vvc_torch.shard.encode), whose orders depend on F (eval_blocks,
+    eval_chroma_modes)."""
     y, cb, cr = _split_planes(planes_vec, w, h, with_chroma, f)
     return torch.stack([
         _pack_results(_eval_all_sizes_impl(
             y[i], sizes, int(qp), bit_depth, w, h, lossless, lfnst,
             None if cb is None else cb[i], None if cr is None else cr[i],
-            isp, vmapped=f > 1), sizes)
+            isp, vmapped=f > 1, sharded=f if sharded else 0), sizes)
         for i in range(f)])
 
 

@@ -8,7 +8,8 @@ loads the library that holds kernel `name` with ctypes.  The build happens at fi
 sources.
 
 Each kernel wrapper (in `vvc_torch.kernels`, `vvc_torch.enc.rdo`,
-`vvc_torch.enc.me` and `vvc_torch.dec.wavefront`):
+`vvc_torch.enc.me`, `vvc_torch.dec.wavefront` and
+`vvc_torch.shard.filter`):
   * on a CPU tensor runs the kernel's plain PyTorch version;
   * on a CUDA tensor launches the kernel, or raises — unless the caller is
     inside `plain()`, the one explicit way to run the plain version on the
@@ -64,6 +65,7 @@ SOURCES = {
     "dequant": "quant_rate.cu",
     "wave_cclm": "cclm.cu",
     "wave_commit": "wavefront.cu",
+    "tile_edge_deblock": "deblock.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -114,7 +114,19 @@ the CLIs — and checks what comes out:
      every MD5 OK through the port's decoder, each child's kernels
      launched;
   26. the CLIs: `vvc_torch.cli.vvcenc` -> `vvcdec` at 416x240, 3 frames,
-     on the card: every POC [OK], decoded YUV == recon YUV.
+     on the card: every POC [OK], decoded YUV == recon YUV;
+  27. slice 7: the kernels interp_planes, phase_gather, block_dist,
+     me_full and affine_gn against their plain versions at 1080p shapes
+     (exact; float results bit for bit); then its path, counted: the r4
+     engine as vvc's r4 MCTF ran it — `interp_luma_planes` of a 1920x1080
+     motion_clip reference and `me_pred_program(cur, phase, 16, 8, 1920,
+     1080, lam_m)` at QP 32 (120 x 67 blocks) —, `affine_me_batch` on the
+     64x64 blocks of a 1080p tool_clip pair (4 and 6 parameters, seeds 0),
+     `sse_batch` / `sad_batch` on the [N,16,16] blocks and `eval_ref` at
+     size 16: shapes, every slice-7 kernel launched, each result equal to
+     the plain path's, CUDA-event times per 1080p frame, bounds;
+  28. `vvc_torch.shard.mesh.sharded_rdo_step` at the NCCL world size on the
+     16x16 blocks of a 1080p picture: equal to its plain run, time.
 
 Prints the kernel table as one JSON line, the card line, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -185,6 +197,10 @@ KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
 # slice 6: the kernel only the sharded path's tile-edge deblock launches,
 # and the kernels of the sharded search (every rank's must launch)
 KERNELS_SHARD = ("tile_edge_deblock",)
+# slice 7: the kernels only the r4 engine, the Gauss-Newton affine ME and
+# sse_batch / sad_batch launch
+KERNELS_R4 = ("interp_planes", "phase_gather", "block_dist", "me_full",
+              "affine_gn")
 SHARD_SEARCH = ("ref_lines", "intra_pred_all", "satd", "transform_fwd",
                 "transform_inv", "quant_rate", "mip_pred_all", "lfnst_fwd",
                 "lfnst_inv", "luma_ds", "cclm_models", "intra_pred_one")
@@ -902,6 +918,308 @@ def shard_phases(ops, stats, compare, kind, encode_sequence):
               f"{[ln for ln in lines if ln.startswith('SUMMARY')]}",
               flush=True)
     return launches24
+
+
+def _rdo_step_rank(orig, refs, size, qp, device):
+    """[28]'s rank body: sharded_rdo_step on a 'tile' mesh of every rank,
+    the counts set to 0 just before the kernel run and read just after,
+    timed (CUDA-synchronised wall, mean of 5 after one warm-up), then the
+    plain run."""
+    import torch.distributed as dist
+    from vvc_torch import ops
+    from vvc_torch.shard.mesh import make_mesh, sharded_rdo_step
+    mesh = make_mesh(dist.get_world_size(), 1)
+    o = torch.from_numpy(orig).to(device)
+    r = torch.from_numpy(refs).to(device)
+    sharded_rdo_step(mesh, o, r, size, qp)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_counts()
+    got = sharded_rdo_step(mesh, o, r, size, qp)
+    torch.cuda.synchronize()
+    counts = dict(ops.COUNTS)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sharded_rdo_step(mesh, o, r, size, qp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    with ops.plain():
+        t0 = time.perf_counter()
+        want = sharded_rdo_step(mesh, o, r, size, qp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2]))
+    return same, counts, ms, plain_ms, got[0].shape[0], float(got[2])
+
+
+def r4_phases(ops, stats, compare, kind):
+    """[27]-[28]: slice 7's kernels against their plain versions at 1080p
+    shapes; its path, counted (the r4 engine at 1920x1080, the Gauss-Newton
+    affine ME, SSE/SAD, eval_ref); times and bounds; sharded_rdo_step at the
+    NCCL world size.  Returns the launches of the counted run."""
+    import torch.nn.functional as F
+    from vvc_torch.enc import inter_search, me, rdo
+    from vvc_torch.io.synth import motion_clip, synth_frame
+    from vvc_torch.kernels import affine, mc, satd
+    from vvc_torch.shard.launch import run_ranks
+    from vvc_torch.shard.mesh import backend_for
+
+    dev = torch.device("cuda")
+    t27 = time.perf_counter()
+    rng = np.random.default_rng(27)
+    S, R, QP = 16, 8, 32
+    lam = np.float32(np.sqrt(0.57 * 2 ** ((QP - 12) / 3)))
+    clip = motion_clip(2, W_HD, H_HD)
+    cur = torch.from_numpy(clip[1].y.astype(np.int32)).to(dev)
+    refp = torch.from_numpy(clip[0].y.astype(np.int32)).to(dev)
+    tc = tool_clip(2, W_HD, H_HD)
+    a_cur = torch.from_numpy(tc[1].astype(np.float32)).to(dev)
+    a_ref = torch.from_numpy(tc[0].astype(np.float32)).to(dev)
+    ny, nx = H_HD // S, W_HD // S
+    n = ny * nx
+    xs, ys = grid_xy(S, W_HD, H_HD, dev)
+    blocks = me.raster_blocks(cur, ny, nx, S)
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    ax_, ay_ = grid_xy(64, W_HD, H_HD, dev)
+    a_blocks = me.raster_blocks(a_cur, H_HD // 64, W_HD // 64, 64)
+    a_zero = torch.zeros(ax_.shape[0], dtype=torch.int32, device=dev)
+
+    def bits_equal(name, got, want):
+        compare(name, got.view(torch.int32) if got.is_floating_point()
+                else got, want.view(torch.int32) if want.is_floating_point()
+                else want)
+
+    # each kernel against its plain version (8 and 10 bit where it reads
+    # samples), at the shapes of the path
+    for bd in (8, 10):
+        plane = (refp if bd == 8 else torch.from_numpy(rng.integers(
+            0, 1 << bd, (H_HD, W_HD)).astype(np.int32)).to(dev))
+        got = mc.interp_luma_planes(plane, bd)
+        with ops.plain():
+            want = mc.interp_luma_planes(plane, bd)
+        compare("interp_planes", got, want)
+        ob = (blocks if bd == 8 else me.raster_blocks(torch.from_numpy(
+            rng.integers(0, 1 << bd, (H_HD, W_HD)).astype(np.int32)).to(dev),
+            ny, nx, S))
+        cx0 = torch.from_numpy(rng.integers(-12, 13, n).astype(
+            np.int32)).to(dev)
+        cy0 = torch.from_numpy(rng.integers(-12, 13, n).astype(
+            np.int32)).to(dev)
+        for c0 in ((zero, zero), (cx0, cy0)):
+            args = (ob, plane, xs, ys, S, R, lam) + c0
+            got = inter_search.int_me(*args)
+            with ops.plain():
+                want = inter_search.int_me(*args)
+            for g, w_ in zip(got, want):
+                compare("me_full", g, w_)
+        mvx = torch.from_numpy(rng.integers(-200, 200, n).astype(
+            np.int32)).to(dev)
+        mvy = torch.from_numpy(rng.integers(-200, 200, n).astype(
+            np.int32)).to(dev)
+        args = (mc.interp_luma_planes(plane, bd), xs, ys, mvx, mvy, S)
+        pred = mc.gather_pred_planes(*args)
+        with ops.plain():
+            compare("phase_gather", pred, mc.gather_pred_planes(*args))
+        for fn in (satd.sse_batch, satd.sad_batch):
+            got = fn(pred, ob)
+            with ops.plain():
+                want = fn(pred, ob)
+            bits_equal("block_dist", got, want)
+        del args
+    for npar in (4, 6):
+        args = (a_blocks, a_ref, ax_, ay_, a_zero, a_zero, 64, 8, npar)
+        got = affine.affine_me_batch(*args)
+        with ops.plain():
+            want = affine.affine_me_batch(*args)
+        compare("affine_gn", got, want)
+    torch.cuda.synchronize()
+    print(f"[27] interp_planes, phase_gather, block_dist, me_full and "
+          f"affine_gn == plain at 1080p shapes (8 and 10 bit; N = {n} "
+          f"16x16 blocks, {ax_.shape[0]} 64x64 affine blocks); "
+          f"{time.perf_counter() - t27:.1f} s", flush=True)
+
+    # the path, counted
+    def path():
+        phase = mc.interp_luma_planes(refp, 8)
+        plane, err = inter_search.me_pred_program(cur, phase, S, R, W_HD,
+                                                  H_HD, lam)
+        cps = [affine.affine_me_batch(a_blocks, a_ref, ax_, ay_, a_zero,
+                                      a_zero, 64, 8, npar)
+               for npar in (4, 6)]
+        pblocks = me.raster_blocks(plane, ny, nx, S)
+        sse, sad = satd.sse_batch(pblocks, blocks), satd.sad_batch(pblocks,
+                                                                   blocks)
+        pp, _ = me.prep_ref(refp)
+        ev = me.eval_ref(pp, blocks, ys, xs, zero, zero, lam, S, H_HD, W_HD,
+                         8)
+        return plane, err, cps, sse, sad, ev
+
+    path()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    plane, err, cps, sse, sad, ev = path()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.COUNTS)
+    for k in KERNELS_R4 + ("satd", "me_prep", "me_int", "me_qpel"):
+        check(launches[k] > 0, f"[27] {k} did not run on slice 7's path: "
+              f"{launches}")
+    check(tuple(plane.shape) == (ny * S, nx * S)
+          and tuple(err.shape) == (ny, nx) and bool(torch.isfinite(err).all())
+          and bool((err >= 0).all()), f"[27] plane {tuple(plane.shape)}, "
+          f"err {tuple(err.shape)}")
+    check(all(tuple(c.shape) == (ax_.shape[0], 3, 2) for c in cps)
+          and tuple(sse.shape) == tuple(sad.shape) == (n,)
+          and tuple(ev["pred"].shape) == (n, S, S), "[27] output shapes")
+    with ops.plain():
+        want = path()
+    compare("phase_gather", plane, want[0])       # the r4 plane
+    bits_equal("block_dist", err, want[1])
+    for g, w_ in zip(cps, want[2]):
+        compare("affine_gn", g, w_)
+    bits_equal("block_dist", sse, want[3])
+    compare("block_dist", sad, want[4])
+    for k in ("mvy", "mvx", "cost", "pred"):
+        bits_equal("me_int", ev[k], want[5][k])
+    err_mean = float(err.mean())
+    # prediction quality: the r4 plane against the picture it predicts
+    psnr = 10 * np.log10(255.0 ** 2 / max(err_mean, 1e-9))
+    check(psnr > 25.0, f"[27] r4 prediction PSNR {psnr:.2f} dB")
+    print(f"[27] slice 7's path on {kind}: interp_luma_planes + "
+          f"me_pred_program at 1920x1080 (S {S}, R {R}, QP {QP}, "
+          f"{nx}x{ny} blocks), affine_me_batch 4 and 6 parameters on "
+          f"{ax_.shape[0]} 64x64 blocks, sse/sad_batch on {n} 16x16 blocks, "
+          f"eval_ref at 16: {wall * 1e3:.3f} ms, == plain; plane "
+          f"{tuple(plane.shape)}, mean err {err_mean:.4f} "
+          f"({psnr:.2f} dB), integer MVs != 0 in "
+          f"{int((ev['iy'] != 0).sum() + (ev['ix'] != 0).sum())} of "
+          f"{2 * n} eval_ref components; launches "
+          f"{ {k: launches[k] for k in KERNELS_R4 + ('satd', 'me_int', 'me_qpel')} }",
+          flush=True)
+
+    # times per 1080p frame (one call of each at the path's shapes)
+    phase = mc.interp_luma_planes(refp, 8)
+    hw = H_HD * W_HD
+    st = stats["interp_planes"]
+    st["ms"] = cuda_ms(lambda: mc.interp_luma_planes(refp, 8), iters=20)
+    with ops.plain():
+        st["plain_ms"] = cuda_ms(lambda: mc.interp_luma_planes(refp, 8),
+                                 iters=3)
+    st["bytes"], st["ops"] = 17 * hw * 4, hw * 2 * (4 * 8 * 8 + 16 * 8)
+    taps = torch.from_numpy(np.einsum(
+        "yk,xl->yxkl", mc.LUMA_FILTERS, mc.LUMA_FILTERS).reshape(
+            16, 1, 8, 8).astype(np.float64)).to(dev)
+    padded = F.pad(refp.double()[None, None], (3, 4, 3, 4),
+                   mode="replicate")
+    st["library_ms"] = cuda_ms(lambda: F.conv2d(padded, taps), iters=5)
+    # phase_gather: 18 calls of N x 16 x 16 per frame (start, 8 half-pel,
+    # 8 quarter-pel candidates, the winner's prediction)
+    fx, fy, _ = inter_search.frac_refine(blocks, phase, xs, ys, zero, zero,
+                                         S, lam)
+    st = stats["phase_gather"]
+    g = lambda: mc.gather_pred_planes(phase, xs, ys, fx, fy, S)
+    st["ms"] = 18 * cuda_ms(g, iters=20)
+    with ops.plain():
+        st["plain_ms"] = 18 * cuda_ms(g, iters=5)
+    st["bytes"], st["ops"] = 18 * (2 * n * S * S * 4 + 4 * n * 4), 0
+    mvx64, mvy64 = fx.long(), fy.long()
+    o = torch.arange(S, device=dev)
+    iy = (ys.long()[:, None] + (mvy64 >> 2)[:, None] + o).clamp(0, H_HD - 1)
+    ix = (xs.long()[:, None] + (mvx64 >> 2)[:, None] + o).clamp(0, W_HD - 1)
+    pf, px = (mvy64 & 3)[:, None, None], (mvx64 & 3)[:, None, None]
+    st["library_ms"] = 18 * cuda_ms(
+        lambda: phase[pf, px, iy[:, :, None], ix[:, None, :]], iters=10)
+    # block_dist: the err SSE and the path's sse_batch + sad_batch (two
+    # SSE calls and one SAD call per frame)
+    pred = mc.gather_pred_planes(phase, xs, ys, fx, fy, S)
+    st = stats["block_dist"]
+    sse_ms = cuda_ms(lambda: satd.sse_batch(pred, blocks), iters=20)
+    sad_ms = cuda_ms(lambda: satd.sad_batch(pred, blocks), iters=20)
+    with ops.plain():
+        sse_plain_ms = cuda_ms(lambda: satd.sse_batch(pred, blocks), iters=3)
+        sad_plain_ms = cuda_ms(lambda: satd.sad_batch(pred, blocks), iters=3)
+    st["ms"] = 2 * sse_ms + sad_ms
+    st["plain_ms"] = 2 * sse_plain_ms + sad_plain_ms
+    st["bytes"], st["ops"] = 3 * (2 * n * S * S * 4 + n * 4), 3 * n * S * S * 3
+    # me_full: one call per frame
+    st = stats["me_full"]
+    fm = lambda: inter_search.int_me(blocks, phase[0, 0], xs, ys, S, R, lam,
+                                     zero, zero)
+    st["ms"] = cuda_ms(fm, iters=5)
+    with ops.plain():
+        st["plain_ms"] = cuda_ms(fm, iters=1, warmup=1)
+    st["bytes"] = n * S * S * 4 + hw * 4 + 4 * n * 4 + 2 * n * 4
+    st["ops"] = n * (2 * R + 1) ** 2 * S * S * 2
+    # affine_gn: 4 and 6 parameters on the frame's 64x64 blocks
+    st = stats["affine_gn"]
+    na = ax_.shape[0]
+    for npar, per in ((4, 60), (6, 90)):
+        fa = lambda: affine.affine_me_batch(a_blocks, a_ref, ax_, ay_,
+                                            a_zero, a_zero, 64, 8, npar)
+        st["ms"] += cuda_ms(fa, iters=5)
+        with ops.plain():
+            st["plain_ms"] += cuda_ms(fa, iters=1, warmup=1)
+        st["bytes"] += na * 64 * 64 * 4 + hw * 4 + 4 * na * 4 + na * 24
+        st["ops"] += na * 64 * 64 * 4 * per
+    for k in KERNELS_R4:
+        st = stats[k]
+        st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
+    fr = lambda: inter_search.frac_refine(blocks, phase, xs, ys, zero, zero,
+                                          S, lam)
+    frac_ms = cuda_ms(fr, iters=5)
+    pp = me.prep_ref(refp)[0]
+    ev = lambda: me.eval_ref(pp, blocks, ys, xs, zero, zero, lam, S, H_HD,
+                             W_HD, 8)
+    ev_ms = cuda_ms(ev, iters=5)
+    with ops.plain():
+        frac_plain_ms = cuda_ms(fr, iters=1, warmup=1)
+        ev_plain_ms = cuda_ms(ev, iters=1, warmup=1)
+    path_ms = cuda_ms(lambda: inter_search.me_pred_program(
+        cur, mc.interp_luma_planes(refp, 8), S, R, W_HD, H_HD, lam), iters=5)
+    with ops.plain():
+        path_plain_ms = cuda_ms(lambda: inter_search.me_pred_program(
+            cur, mc.interp_luma_planes(refp, 8), S, R, W_HD, H_HD, lam),
+            iters=1, warmup=1)
+    print(f"[27] per 1080p frame on {kind} (CUDA events): "
+          + "; ".join(f"{k} {stats[k]['ms']:.4f} ms (plain "
+                      f"{stats[k]['plain_ms']:.4f}, bound "
+                      f"{stats[k]['bound_ms']:.4f} {stats[k]['bound_by']}, "
+                      f"library {stats[k]['library_ms']})"
+                      for k in KERNELS_R4)
+          + f"; sse_batch {sse_ms:.4f} ms (plain {sse_plain_ms:.4f}); "
+          f"sad_batch {sad_ms:.4f} ms (plain {sad_plain_ms:.4f}); "
+          f"frac_refine {frac_ms:.4f} ms (plain {frac_plain_ms:.4f}); "
+          f"interp_luma_planes + me_pred_program {path_ms:.4f} ms (plain "
+          f"{path_plain_ms:.4f}); eval_ref at 16 {ev_ms:.4f} ms (plain "
+          f"{ev_plain_ms:.4f}); {time.perf_counter() - t27:.1f} s",
+          flush=True)
+
+    # 28. sharded_rdo_step at the NCCL world size on a 1080p picture's
+    # 16x16 blocks
+    t28 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    f0 = synth_frame(W_HD, H_HD, 0)
+    y0 = torch.from_numpy(f0.y.astype(np.int32)).to(dev)
+    refs = rdo.build_ref_lines_device(y0, xs, ys, S, 8)
+    orig = me.raster_blocks(y0, ny, nx, S)
+    same, counts, ms, plain_ms, nb, total = run_ranks(
+        _rdo_step_rank, n_cards, backend_for(n_cards, None), "cuda", 600,
+        orig.cpu().numpy(), refs.cpu().numpy(), S, QP)
+    check(same and nb == n, f"[28] sharded_rdo_step: kernels != plain "
+          f"({nb} blocks)")
+    check(all(counts[k] > 0 for k in ("intra_pred_all", "satd",
+                                      "transform_fwd", "quant_rate")),
+          f"[28] sharded_rdo_step's kernels did not run: {counts}")
+    print(f"[28] sharded_rdo_step on {n_cards} rank(s) "
+          f"({backend_for(n_cards, None)}), {n} 16x16 blocks of a 1080p "
+          f"picture, QP {QP}: == plain; {ms:.4f} ms a step (plain "
+          f"{plain_ms:.4f} ms); total cost {total:.1f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; "
+          f"{time.perf_counter() - t28:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1770,9 +2088,10 @@ def main() -> int:
     del t4
     torch.cuda.synchronize()
     for name, st in stats.items():
-        if name in ("sao_stats", "alf_stats") + KERNELS_DEC + KERNELS_SHARD:
+        if name in (("sao_stats", "alf_stats") + KERNELS_DEC + KERNELS_SHARD
+                    + KERNELS_R4):
             continue        # timed on a 2b recon after [7]; the decoder's in
-            # [19]; tile_edge_deblock in [22]
+            # [19]; tile_edge_deblock in [22]; slice 7's in [27]
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
         print(f"[3] {name}: exact vs plain; per 1080p frame (all its "
               f"launches): kernel {st['ms']:.3f} ms, plain "
@@ -2109,7 +2428,8 @@ def main() -> int:
     phases = perf.report()
     for name in ops.COUNTS:
         check((launches[name] > 0) == (name not in RECT_KERNELS + KERNELS_4B
-                                       + KERNELS_DEC + KERNELS_SHARD),
+                                       + KERNELS_DEC + KERNELS_SHARD
+                                       + KERNELS_R4),
               f"{name}: {launches[name]} launches on the slice-4a main "
               f"path")
     nals12 = read_annexb(bs12)
@@ -2182,7 +2502,8 @@ def main() -> int:
     phases = perf.report()
     for name in ops.COUNTS:
         check((launches14[name] > 0) == (name not in ME_KERNELS + KERNELS_4B
-                                         + KERNELS_DEC + KERNELS_SHARD),
+                                         + KERNELS_DEC + KERNELS_SHARD
+                                         + KERNELS_R4),
               f"{name}: {launches14[name]} launches on the slice-2c main "
               f"path")
     types = [n.nal_type for n in read_annexb(bs14)]
@@ -2264,7 +2585,7 @@ def main() -> int:
     phases16 = perf.report()
     for name in ops.COUNTS:
         check((launches16[name] > 0) == (name not in KERNELS_DEC
-                                         + KERNELS_SHARD),
+                                         + KERNELS_SHARD + KERNELS_R4),
               f"{name}: {launches16[name]} launches on the slice-4b main "
               f"path")
     nals16 = read_annexb(bs16)
@@ -2328,7 +2649,10 @@ def main() -> int:
         encode_sequence)
     # 22-26. slice 6: the sharded encode, the halo deblock, DCN, the CLIs
     launches24 = shard_phases(ops, stats, compare, kind, encode_sequence)
-    print(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    # 27-28. slice 7: the r4 engine, the Gauss-Newton affine ME, SSE/SAD,
+    # eval_ref; sharded_rdo_step on the card
+    launches27 = r4_phases(ops, stats, compare, kind)
+    print(f"[29] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     rep = {"ref_lines": "vvc/enc/rdo.py:59",
@@ -2363,11 +2687,18 @@ def main() -> int:
                         "vvc/kernels/cclm.py:232",
            "wave_commit": "vvc/dec/wavefront.py:111-114,134-138",
            "tile_edge_deblock": "vvc/shard/filter.py:35,101 (shard body "
-                                ":119-131)"}
+                                ":119-131)",
+           "interp_planes": "vvc/kernels/mc.py:438 (body :456)",
+           "phase_gather": "vvc/kernels/mc.py:482",
+           "block_dist": "vvc/kernels/satd.py:26,33; "
+                         "vvc/enc/inter_search.py:391 (err)",
+           "me_full": "vvc/enc/inter_search.py:70",
+           "affine_gn": "vvc/kernels/affine.py:253,295"}
     # launches: the rect kernels' from the slice-2c path [14], the 4b
     # kernels' from the slice-4b path [16], the decoder's from the
     # wavefront decode [20], tile_edge_deblock's from the 4-rank deblock
-    # [24], the others' from the slice-4a path [12]
+    # [24], slice 7's from its path [27], the others' from the slice-4a
+    # path [12]
     table = [{"name": k, "route": "cuda",
               "source": f"vvc_torch/csrc/{ops.SOURCES[k]}",
               "replaces": rep[k],
@@ -2375,6 +2706,7 @@ def main() -> int:
                            else launches16 if k in KERNELS_4B
                            else launches20 if k in KERNELS_DEC
                            else {k: launches24} if k in KERNELS_SHARD
+                           else launches27 if k in KERNELS_R4
                            else launches12)[k],
               "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
               "plain_ms": stats[k]["plain_ms"],

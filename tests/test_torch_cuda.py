@@ -18,6 +18,10 @@ KERNELS_4B = ("affine_search", "affine_dctif", "me_block_err")
 KERNELS_DEC = ("wave_ref_lines", "dequant", "wave_cclm", "wave_commit")
 # the kernel only the sharded path's tile-edge deblock launches
 KERNELS_SHARD = ("tile_edge_deblock",)
+# the kernels only slice 7's functions launch (the r4 engine, the
+# Gauss-Newton affine ME, sse_batch / sad_batch)
+KERNELS_R4 = ("interp_planes", "phase_gather", "block_dist", "me_full",
+              "affine_gn")
 
 
 @pytest.fixture
@@ -255,7 +259,7 @@ def test_2b_search_vector_equal_plain(dev, cols):
                if k not in ("sao_stats", "alf_stats", "me_prep",
                             "me_coarse", "me_int", "me_qpel",
                             "ref_lines_rect", "intra_pred_all_rect",
-                            "intra_pred_one_rect") + KERNELS_4B
+                            "intra_pred_one_rect") + KERNELS_4B + KERNELS_R4
                + KERNELS_DEC + KERNELS_SHARD)
 
 
@@ -524,7 +528,7 @@ def test_mtt_isp_search_vector_equal_plain(dev, cols):
     assert all(ops.COUNTS[k] > 0 for k in ops.COUNTS
                if k not in ("sao_stats", "alf_stats", "me_prep",
                             "me_coarse", "me_int", "me_qpel") + KERNELS_4B
-               + KERNELS_DEC + KERNELS_SHARD)
+               + KERNELS_DEC + KERNELS_SHARD + KERNELS_R4)
 
 
 def test_mtt_isp_mrl_dq_stream_equal_plain(dev):
@@ -794,3 +798,113 @@ def test_tile_edge_deblock_equal_plain(dev, bit_depth):
             if left and right:
                 changed = bool((got != x).any())
         assert changed == (tc > 0)
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the r4 engine, the Gauss-Newton affine ME, SSE/SAD
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_interp_gather_block_dist_equal_plain(dev, bit_depth):
+    """interp_planes, phase_gather (negative MVs, border clamps) and
+    block_dist (SSE bit for bit, sums past 2^24 at 10 bit; SAD) against
+    their plain versions; one launch each per call."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import mc, satd
+    rng = np.random.default_rng(bit_depth)
+    mx = (1 << bit_depth) - 1
+    plane = torch.from_numpy(rng.integers(0, mx + 1, (70, 136)).astype(
+        np.int32)).to(dev)
+    before = dict(ops.COUNTS)
+    planes, want = _both(mc.interp_luma_planes, plane, bit_depth)
+    assert torch.equal(planes, want)
+    for s in (8, 16, 64):
+        n = 200
+        xs = torch.from_numpy(rng.integers(0, 136 - s, n).astype(
+            np.int32)).to(dev)
+        ys = torch.from_numpy(rng.integers(0, 70 - s, n).astype(
+            np.int32)).to(dev)
+        mvx = torch.from_numpy(rng.integers(-300, 300, n).astype(
+            np.int32)).to(dev)
+        mvy = torch.from_numpy(rng.integers(-300, 300, n).astype(
+            np.int32)).to(dev)
+        pred, want = _both(mc.gather_pred_planes, planes, xs, ys, mvx, mvy,
+                           s)
+        assert torch.equal(pred, want)
+        orig = torch.from_numpy((rng.integers(0, 2, (n, s, s)) * mx).astype(
+            np.int32)).to(dev)
+        got, want = _both(satd.sse_batch, pred, orig)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        got, want = _both(satd.sad_batch, pred, orig)
+        assert torch.equal(got, want)
+    assert ops.COUNTS["interp_planes"] == before["interp_planes"] + 1
+    assert ops.COUNTS["phase_gather"] == before["phase_gather"] + 3
+    assert ops.COUNTS["block_dist"] == before["block_dist"] + 6
+
+
+@pytest.mark.parametrize("bit_depth", (8, 10))
+def test_me_full_and_r4_program_equal_plain(dev, bit_depth):
+    """me_full from centre 0 and from random centres, and the whole
+    me_pred_program (me_full, phase_gather, satd, block_dist) on a
+    motion_clip pair: kernels == plain, plane and err bit for bit."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.enc import inter_search
+    from vvc_torch.io.synth import motion_clip
+    from vvc_torch.kernels import mc
+    h, w = 128, 192
+    clip = motion_clip(2, w, h, bit_depth=bit_depth)
+    cur = torch.from_numpy(clip[1].y.astype(np.int32)).to(dev)
+    ref = torch.from_numpy(clip[0].y.astype(np.int32)).to(dev)
+    lam = np.float32(np.sqrt(0.57 * 2 ** ((32 - 12) / 3)))
+    phase = mc.interp_luma_planes(ref, bit_depth)
+    before = dict(ops.COUNTS)
+    got, want = _both(inter_search.me_pred_program, cur, phase, 16, 8, w, h,
+                      lam)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert all(ops.COUNTS[k] > before[k]
+               for k in ("me_full", "phase_gather", "satd", "block_dist"))
+    rng = np.random.default_rng(bit_depth)
+    n = (h // 32) * (w // 32)
+    blocks = torch.from_numpy(rng.integers(0, 1 << bit_depth, (n, 32, 32))
+                              .astype(np.int32)).to(dev)
+    xs = torch.arange(n, dtype=torch.int32, device=dev) % (w // 32) * 32
+    ys = torch.arange(n, dtype=torch.int32, device=dev) // (w // 32) * 32
+    c = torch.from_numpy(rng.integers(-9, 10, (2, n)).astype(np.int32)).to(
+        dev)
+    got, want = _both(inter_search.int_me, blocks, ref, xs, ys, 32, 12, lam,
+                      c[0], c[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n_params", (4, 6))
+@pytest.mark.parametrize("size", (16, 64))
+def test_affine_gn_equal_plain(dev, size, n_params):
+    """affine_gn against its plain twin (the same float32 order): the
+    corner MVs equal, one launch a call."""
+    import torch
+    from vvc_torch import ops
+    from vvc_torch.kernels import affine
+    rng = np.random.default_rng(size + n_params)
+    base = rng.integers(0, 256, (160, 224)).astype(np.float64)
+    for _ in range(3):
+        base = (np.roll(base, 1, 0) + base + np.roll(base, -1, 0)) / 3
+        base = (np.roll(base, 1, 1) + base + np.roll(base, -1, 1)) / 3
+    ref = torch.from_numpy(base.round().astype(np.float32)).to(dev)
+    ny, nx = 160 // size, 224 // size
+    cur = torch.roll(ref, (1, -2), (0, 1))
+    blocks = (cur[:ny * size, :nx * size].reshape(ny, size, nx, size)
+              .permute(0, 2, 1, 3).reshape(-1, size, size).contiguous())
+    n = ny * nx
+    xs = torch.arange(n, dtype=torch.int32, device=dev) % nx * size
+    ys = torch.arange(n, dtype=torch.int32, device=dev) // nx * size
+    m0 = torch.from_numpy(rng.integers(-6, 7, (2, n)).astype(np.int32)).to(
+        dev)
+    before = ops.COUNTS["affine_gn"]
+    got, want = _both(affine.affine_me_batch, blocks, ref, xs, ys, m0[0],
+                      m0[1], size, 8, n_params)
+    assert torch.equal(got, want)
+    assert ops.COUNTS["affine_gn"] == before + 1

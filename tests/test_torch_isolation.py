@@ -8,8 +8,10 @@ encode_sequence in LDP and RA, and RA with the ten slice-4b options
 decoding the lossless and the lossy stream with the port's decode_stream
 on the host path and the wavefront path, a sharded encode on 2 gloo ranks
 (vvc_torch.shard), a DCN encode and the CLIs' encode → decode round trip
-(vvc_torch.cli) — no JAX module and no module of the JAX package `vvc` is
-loaded, in the process or in a rank; and the entry points, given no
+(vvc_torch.cli), and slice 7's functions (the r4 engine's phase planes,
+gather and me_pred_program, sse_batch / sad_batch, the Gauss-Newton
+affine ME, eval_ref) — no JAX module and no module of the JAX package
+`vvc` is loaded, in the process or in a rank; and the entry points, given no
 device, ask for CUDA and raise where CUDA is absent instead of falling
 back to the CPU."""
 import json
@@ -100,6 +102,29 @@ with contextlib.redirect_stdout(io.StringIO()):
 shard_ok = bool(rank_mods == [] and bs9 == bs3 and bs10 == bs3 and open(
     os.path.join(tmp, "dec.yuv"), "rb").read() == open(
     os.path.join(tmp, "rec.yuv"), "rb").read())
+import numpy as np
+from vvc_torch.enc import inter_search, me
+from vvc_torch.kernels import affine, mc, satd
+lam = np.float32(3.7)
+cur_t = torch.from_numpy(clip[1].y.astype(np.int32))
+ref_t = torch.from_numpy(clip[0].y.astype(np.int32))
+phase = mc.interp_luma_planes(ref_t, 8)
+plane_r4, err_r4 = inter_search.me_pred_program(cur_t, phase, 16, 8, 64, 64,
+                                                lam)
+blk = me.raster_blocks(cur_t, 4, 4, 16)
+gx = torch.arange(4, dtype=torch.int32).repeat(4) * 16
+gy = torch.arange(4, dtype=torch.int32).repeat_interleave(4) * 16
+z = torch.zeros(16, dtype=torch.int32)
+pred_r4 = mc.gather_pred_planes(phase, gx, gy, z + 5, z - 3, 16)
+sse_r4, sad_r4 = satd.sse_batch(pred_r4, blk), satd.sad_batch(pred_r4, blk)
+cp_r4 = affine.affine_me_batch(blk.float(), ref_t.float(), gx, gy, z, z, 16,
+                               8)
+ev_r4 = me.eval_ref(me.prep_ref(ref_t)[0], blk, gy, gx, z, z, lam, 16, 64,
+                    64, 8)
+r4_ok = bool(plane_r4.shape == (64, 64) and err_r4.shape == (4, 4)
+             and sse_r4.shape == sad_r4.shape == (16,)
+             and cp_r4.shape == (16, 3, 2) and ev_r4["pred"].shape
+             == (16, 16, 16))
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: encode_sequence(frames, qp=32, lossless=True),
@@ -125,7 +150,7 @@ print(json.dumps({
                    if m.split(".")[0] in ("jax", "jaxlib", "vvc")),
     "bytes": len(bs), "ok": ok, "lossy_ok": lossy_ok,
     "inter_ok": inter_ok, "ok4b": ok4b, "dec_ok": dec_ok,
-    "shard_ok": shard_ok,
+    "shard_ok": shard_ok, "r4_ok": r4_ok,
     "raised": raised,
     "counts": ops.COUNTS, "cuda": torch.cuda.is_available()}))
 """
@@ -141,7 +166,7 @@ def test_port_imports_no_jax_and_no_vvc():
     assert res["mods"] == []
     assert res["ok"] and res["bytes"] > 0 and res["lossy_ok"]
     assert res["inter_ok"] and res["ok4b"] and res["dec_ok"]
-    assert res["shard_ok"]
+    assert res["shard_ok"] and res["r4_ok"]
     # CPU tensors take the plain versions: no kernel launch is counted
     assert res["counts"] == {k: 0 for k in (
         "ref_lines", "intra_pred_all", "satd", "transform_fwd",
@@ -151,7 +176,8 @@ def test_port_imports_no_jax_and_no_vvc():
         "me_qpel", "ref_lines_rect", "intra_pred_all_rect",
         "intra_pred_one_rect", "affine_search", "affine_dctif",
         "me_block_err", "wave_ref_lines", "dequant", "wave_cclm",
-        "wave_commit", "tile_edge_deblock")}
+        "wave_commit", "tile_edge_deblock", "interp_planes", "phase_gather",
+        "block_dist", "me_full", "affine_gn")}
     if not res["cuda"]:
         assert len(res["raised"]) == 10
         assert all("CUDA is not available" in r for r in res["raised"])

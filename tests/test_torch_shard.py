@@ -304,6 +304,61 @@ def _check_sharded_vectors(mesh_fm):
         np.testing.assert_array_equal(got, want[:, :got.shape[1]])
 
 
+def _mtt_isp_cells(bd, seed, n=8):
+    """n packed 128×64 cells (luma and chroma) of content on which the
+    MTT lattice and ISP engage: smooth synthetic pictures at 8 bit, tied
+    noise (tests.sweep_torch_chroma_orders) at 10 bit."""
+    from vvc.enc.rdo import pack_planes
+    if bd == 8:
+        return np.stack([pack_planes(f.y, f.cb, f.cr) for f in (
+            synth_frame(128, 64, seed + t) for t in range(n))])
+    from tests.sweep_torch_chroma_orders import planes
+    rng = np.random.default_rng(seed)
+    return np.stack([pack_planes(*planes(128, 64, rng, "tied"))
+                     for _ in range(n)])
+
+
+def _check_mtt_isp_vectors(mesh_fm, bd):
+    """vvc's sharded MTT + ISP search (vvc/shard/encode.py:30
+    eval_cells_sharded with the MTT lattice and isp=True) on 8 virtual CPU
+    devices against the port's per-rank search (eval_all_sizes_frames with
+    sharded=True on each rank's k cells, as eval_cells_sharded runs it):
+    the packed vectors bit for bit, rect rates and SSEs included."""
+    import torch
+    from vvc.enc.rdo import _candidate_shapes
+    from vvc_torch.enc.rdo import eval_all_sizes_frames
+    from vvc_torch.shard.encode import _frame_major
+    w, h = 128, 64
+    shapes = _candidate_shapes(64, 8, True)
+    mesh = ref_encode.make_encode_mesh(*mesh_fm)
+    k = 8 // (mesh_fm[0] * mesh_fm[1])
+    cells = _mtt_isp_cells(bd, 3)
+    want = ref_encode.eval_cells_sharded(mesh, cells, shapes, 32, bd, w, h,
+                                         False, True, True, isp=True)
+    got = np.concatenate([eval_all_sizes_frames(
+        torch.from_numpy(_frame_major(cells[c:c + k], w, h, True)), shapes,
+        32, bd, w, h, k, False, True, True, True, sharded=True).numpy()
+        for c in range(0, 8, k)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.usefixtures("release_jax_programs")
+def test_sharded_mtt_isp_vector_k1_equal_vvc():
+    """k = 1 (8 cells on a (2, 4) mesh), 8 bit: the sharded MTT + ISP
+    search vector equals vvc's bit for bit."""
+    _check_mtt_isp_vectors((2, 4), 8)
+
+
+@pytest.mark.slow
+@pytest.mark.usefixtures("release_jax_programs")
+@pytest.mark.parametrize("mesh_fm,bd", [((1, 4), 8), ((2, 4), 10)],
+                         ids=["k2-8bit", "k1-10bit"])
+def test_sharded_mtt_isp_vector_equal_vvc(mesh_fm, bd):
+    """k = 2 at 8 bit and k = 1 at 10 bit (tied noise, sums past 2^24):
+    slow, each compiles vvc's MTT + ISP sharded program anew."""
+    _check_mtt_isp_vectors(mesh_fm, bd)
+
+
 def test_encode_sequence_sharded_mesh_on_some_ranks():
     """On 3 ranks vvc's shape choice for 2 frames of 2 tiles is a (2, 1)
     mesh over ranks 0 and 1: rank 2 only takes part in making it, and the

@@ -6,6 +6,8 @@
 // TPU):
 //   affine_search <- :272 affine_search_win   corner-delta CPMV search
 //   affine_dctif  <- :374 _affine_dctif_pred  the winner's 8-tap prediction
+// and, below, affine_gn <- vvc/kernels/affine.py:253 affine_me_batch (the
+// r4 engine's Gauss-Newton CPMV search, :295 _affine_me_jit).
 // Their plain twins are in vvc_torch/enc/me.py.  Both read vvc's re-centred
 // window w2 ((S+12)^2 samples at padded (ys+16+iy-6, xs+16+ix-6)) from the
 // padded reference into shared memory.
@@ -320,4 +322,199 @@ extern "C" int affine_dctif_launch(const int* refpad, const int* ys,
   }
 #undef AFF_DCTIF
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// affine_gn: vvc/kernels/affine.py:253 affine_me_batch (:295 _affine_me_jit,
+// :274 _solve_small).  One CTA of 256 threads per block, `iters`
+// Gauss-Newton steps of a 4- or 6-parameter model.  Every operation is one
+// float32 rounding in vvc's written order (__f*_rn: nothing is contracted):
+// per step the bilinear warp of the reference at positions clipped to
+// [0, w - 1.001] into shared memory, the gradients with a wrap at the block
+// edge (jnp.roll), the basis, then the NPAR(NPAR+1)/2 entries of B^T B and
+// the NPAR of B^T e.  Each of those S^2-term sums takes the port's order,
+// shared with the plain twin (vvc_torch/kernels/affine.py _lane_sum): lane
+// t of min(256, S^2) sums the products t, t + 256, ... from 0, then a
+// halving tree over the lanes in shared memory.  Thread 0 solves
+// [A + 0.01 I | rhs] by vvc's unpivoted Gauss-Jordan and updates theta.
+// Then the corner MVs, rounded half to even (jnp.round) and clipped to
+// +-2^17.  Bound: operations, about 60 per sample and step (warp, gradient,
+// basis, 14 or 27 product-sums), small against the launch at 1080p.
+// ---------------------------------------------------------------------------
+namespace {
+
+template <int NPAR>
+__device__ __forceinline__ void gn_field(const float* th, float x, float y,
+                                         float* vx, float* vy) {
+  if constexpr (NPAR == 4) {
+    *vx = __fsub_rn(__fadd_rn(th[0], __fmul_rn(th[2], x)), __fmul_rn(th[3], y));
+    *vy = __fadd_rn(__fadd_rn(th[1], __fmul_rn(th[3], x)), __fmul_rn(th[2], y));
+  } else {
+    *vx = __fadd_rn(__fadd_rn(th[0], __fmul_rn(th[2], x)), __fmul_rn(th[4], y));
+    *vy = __fadd_rn(__fadd_rn(th[1], __fmul_rn(th[3], x)), __fmul_rn(th[5], y));
+  }
+}
+
+template <int NPAR>
+__global__ void affine_gn_kernel(const float* __restrict__ blocks,
+                                 const float* __restrict__ ref,
+                                 const int* __restrict__ xs,
+                                 const int* __restrict__ ys,
+                                 const int* __restrict__ mv0x,
+                                 const int* __restrict__ mv0y, int s, int h,
+                                 int w, int iters, float hx, float hy,
+                                 int* __restrict__ out) {
+  constexpr int NA = NPAR * (NPAR + 1) / 2;   // entries of A (i <= j)
+  constexpr int NQ = NA + NPAR;               // + rhs
+  extern __shared__ float sm[];
+  const int ss = s * s;
+  const int lanes = ss < 256 ? ss : 256;
+  float* pred = sm;                 // ss
+  float* err = pred + ss;           // ss
+  float* part = err + ss;           // NQ * lanes
+  __shared__ float th[NPAR];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const float* blk = blocks + (long long)b * ss;
+  const float xf = (float)xs[b], yf = (float)ys[b];
+  if (tid < NPAR)
+    th[tid] = tid == 0 ? __fdiv_rn((float)mv0x[b], 4.0f)
+              : tid == 1 ? __fdiv_rn((float)mv0y[b], 4.0f) : 0.0f;
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    for (int p = tid; p < ss; p += blockDim.x) {
+      const float gx = (float)(p % s), gy = (float)(p / s);
+      float vx, vy;
+      gn_field<NPAR>(th, gx, gy, &vx, &vy);
+      const float px = fminf(fmaxf(__fadd_rn(__fadd_rn(xf, gx), vx), 0.0f), hx);
+      const float py = fminf(fmaxf(__fadd_rn(__fadd_rn(yf, gy), vy), 0.0f), hy);
+      const float x0 = floorf(px), y0 = floorf(py);
+      const float ax = __fsub_rn(px, x0), ay = __fsub_rn(py, y0);
+      const int x0i = (int)x0, y0i = (int)y0;
+      const int x1i = min(x0i + 1, w - 1), y1i = min(y0i + 1, h - 1);
+      const float p00 = ref[(long long)y0i * w + x0i];
+      const float p01 = ref[(long long)y0i * w + x1i];
+      const float p10 = ref[(long long)y1i * w + x0i];
+      const float p11 = ref[(long long)y1i * w + x1i];
+      const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
+      const float r0 = __fadd_rn(__fmul_rn(bx, p00), __fmul_rn(ax, p01));
+      const float r1 = __fadd_rn(__fmul_rn(bx, p10), __fmul_rn(ax, p11));
+      const float v = __fadd_rn(__fmul_rn(by, r0), __fmul_rn(ay, r1));
+      pred[p] = v;
+      err[p] = __fsub_rn(blk[p], v);
+    }
+    __syncthreads();
+    if (tid < lanes) {
+      float acc[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) acc[q] = 0.0f;
+      for (int p = tid; p < ss; p += lanes) {
+        const int i = p / s, j = p % s;
+        const float* row = pred + i * s;
+        const float gx = __fdiv_rn(
+            __fsub_rn(row[(j + 1) % s], row[(j + s - 1) % s]), 2.0f);
+        const float gy = __fdiv_rn(
+            __fsub_rn(pred[((i + 1) % s) * s + j], pred[((i + s - 1) % s) * s + j]),
+            2.0f);
+        const float X = (float)j, Y = (float)i;
+        float bv[NPAR];
+        bv[0] = gx;
+        bv[1] = gy;
+        if constexpr (NPAR == 4) {
+          bv[2] = __fadd_rn(__fmul_rn(gx, X), __fmul_rn(gy, Y));
+          bv[3] = __fadd_rn(__fmul_rn(-gx, Y), __fmul_rn(gy, X));
+        } else {
+          bv[2] = __fmul_rn(gx, X);
+          bv[3] = __fmul_rn(gy, X);
+          bv[4] = __fmul_rn(gx, Y);
+          bv[5] = __fmul_rn(gy, Y);
+        }
+        int q = 0;
+#pragma unroll
+        for (int u = 0; u < NPAR; ++u)
+#pragma unroll
+          for (int v = u; v < NPAR; ++v, ++q)
+            acc[q] = __fadd_rn(acc[q], __fmul_rn(bv[u], bv[v]));
+        const float e = err[p];
+#pragma unroll
+        for (int u = 0; u < NPAR; ++u)
+          acc[NA + u] = __fadd_rn(acc[NA + u], __fmul_rn(bv[u], e));
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) part[q * lanes + tid] = acc[q];
+    }
+    __syncthreads();
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+      for (int k = tid; k < NQ * off; k += blockDim.x) {
+        const int q = k / off, t = k % off;
+        part[q * lanes + t] = __fadd_rn(part[q * lanes + t],
+                                        part[q * lanes + t + off]);
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      float m[NPAR][NPAR + 1];
+      int q = 0;
+      for (int u = 0; u < NPAR; ++u)
+        for (int v = u; v < NPAR; ++v, ++q) {
+          const float a = part[q * lanes];
+          m[u][v] = u == v ? __fadd_rn(a, 0.01f) : a;
+          m[v][u] = m[u][v];
+        }
+      for (int u = 0; u < NPAR; ++u) m[u][NPAR] = part[(NA + u) * lanes];
+      for (int k = 0; k < NPAR; ++k) {
+        const float d = m[k][k];
+        for (int c = 0; c <= NPAR; ++c) m[k][c] = __fdiv_rn(m[k][c], d);
+        for (int r = 0; r < NPAR; ++r) {
+          if (r == k) continue;
+          const float f = m[r][k];
+          for (int c = 0; c <= NPAR; ++c)
+            m[r][c] = __fsub_rn(m[r][c], __fmul_rn(f, m[k][c]));
+        }
+      }
+      for (int u = 0; u < NPAR; ++u) th[u] = __fadd_rn(th[u], m[u][NPAR]);
+    }
+    __syncthreads();
+  }
+  if (tid < 3) {
+    const float px = tid == 1 ? (float)s : 0.0f;
+    const float py = tid == 2 ? (float)s : 0.0f;
+    float c[2];
+    gn_field<NPAR>(th, px, py, &c[0], &c[1]);
+    for (int k = 0; k < 2; ++k) {
+      const float r = fminf(fmaxf(rintf(__fmul_rn(c[k], 4.0f)), -131072.0f),
+                            131071.0f);
+      out[((long long)b * 3 + tid) * 2 + k] = (int)r;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int affine_gn_launch(const float* blocks, const float* ref,
+                                const int* xs, const int* ys, const int* mv0x,
+                                const int* mv0y, int n, int s, int h, int w,
+                                int npar, int iters, float hx, float hy,
+                                int* out, void* stream) {
+  if (n == 0) return 0;
+  if (npar != 4 && npar != 6) return (int)cudaErrorInvalidValue;
+  const int ss = s * s, lanes = ss < 256 ? ss : 256;
+  const int nq = npar * (npar + 1) / 2 + npar;
+  const size_t smem = (size_t)(2 * ss + nq * lanes) * sizeof(float);
+  cudaError_t err;
+  if (npar == 4) {
+    err = cudaFuncSetAttribute(affine_gn_kernel<4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    affine_gn_kernel<4><<<n, 256, smem, (cudaStream_t)stream>>>(
+        blocks, ref, xs, ys, mv0x, mv0y, s, h, w, iters, hx, hy, out);
+  } else {
+    err = cudaFuncSetAttribute(affine_gn_kernel<6>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    affine_gn_kernel<6><<<n, 256, smem, (cudaStream_t)stream>>>(
+        blocks, ref, xs, ys, mv0x, mv0y, s, h, w, iters, hx, hy, out);
+  }
+  return (int)cudaGetLastError();
 }

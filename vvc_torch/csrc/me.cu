@@ -9,6 +9,8 @@
 //   me_qpel   <- :203 _qpel_refine     49 quarter-pel offsets, DCTIF + SATD
 //   me_block_err <- the tail of :423 me_pred_v2 (MCTF): prediction plane and
 //                the per-16x16-block float32 mean of (pred - cur)^2
+// and one of vvc/enc/inter_search.py (the r4 engine, below):
+//   me_full   <- :70  _int_me_dev      full search over (2R+1)^2 offsets
 // Their plain twins are in vvc_torch/enc/me.py; the float32 costs are
 // bit-equal to vvc's on XLA-CPU: XLA's own log is read from a table
 // (mvb[|d|] = fma(log(1+|d|), 2/ln 2, 1), built on the host), the costs
@@ -551,4 +553,159 @@ extern "C" int me_qpel_launch(const int* refpad, const int* ob, const int* ys,
   }
 #undef ME_QPEL
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// me_full: vvc/enc/inter_search.py:70 _int_me_dev, the r4 engine's integer
+// full search.  One CTA per block.  The (S+2R)^2 window (edge-clamped to
+// the picture, as vvc's clipped gather) and the block go to shared memory;
+// then, as vvc computes it in float32:
+//   ii   = the integral image of win^2: two cumsums, along y then x, each
+//          in XLA-CPU's blocked order (its reduce-window rewrite: blocks of
+//          16, a sequential prefix inside each, plus the sequential sum of
+//          the earlier blocks' totals), zero-padded on the top and left;
+//   e    = ((ii[d+S][d'+S] - ii[d+S][d']) - ii[d][d'+S]) + ii[d][d'];
+//   corr = the correlation, summed exactly in integers and rounded once
+//          (vvc's grouped convolution is a runtime Eigen call whose order
+//          is not reproduced; below 2^24, as at 8 bit and S <= 16, every
+//          order gives the exact value);
+//   cost = fma(lam, bits(4(cy+d-R)) + bits(4(cx+d'-R)), e - 2 corr).
+// Thread t scores the offsets t, t + 256, ... (raster order, dy outer)
+// keeping its first minimum; a lexicographic (cost, index) reduction then
+// gives the first minimum of all.  Bound: operations, (2R+1)^2 S^2
+// multiply-adds per block on the CUDA cores.
+// ---------------------------------------------------------------------------
+namespace {
+
+__device__ __forceinline__ void xla_prefix(float* v, int n, int stride) {
+  // v[0], v[stride], ... <- their float32 prefix sums in XLA-CPU's order
+  float base = 0.0f;
+  for (int b = 0; b < n; b += 16) {
+    float acc = 0.0f;
+    const int e = min(b + 16, n);
+    for (int i = b; i < e; ++i) {
+      acc = __fadd_rn(acc, v[i * stride]);
+      v[i * stride] = __fadd_rn(acc, base);
+    }
+    base = __fadd_rn(base, acc);
+  }
+}
+
+template <typename Acc>
+__global__ void me_full_kernel(const int* __restrict__ blocks,
+                               const int* __restrict__ ref,
+                               const int* __restrict__ xs,
+                               const int* __restrict__ ys,
+                               const int* __restrict__ cx0,
+                               const int* __restrict__ cy0,
+                               const float* __restrict__ mvb, float lam_m,
+                               int s, int r, int h, int w,
+                               int* __restrict__ mvx, int* __restrict__ mvy) {
+  extern __shared__ int smem[];
+  const int L = s + 2 * r, D = 2 * r + 1, L1 = L + 1;
+  int* win = smem;                              // L*L
+  int* blk = win + L * L;                       // s*s
+  float* ii = (float*)(blk + s * s);            // (L+1)^2
+  float* rc = ii + L1 * L1;                     // blockDim.x costs
+  int* ri = (int*)(rc + blockDim.x);            // blockDim.x indices
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int cx = cx0[b], cy = cy0[b];
+  const int oy = ys[b] + cy - r, ox = xs[b] + cx - r;
+  for (int i = tid; i < L * L; i += blockDim.x) {
+    const int y = min(max(oy + i / L, 0), h - 1);
+    const int x = min(max(ox + i % L, 0), w - 1);
+    win[i] = ref[(long long)y * w + x];
+  }
+  for (int i = tid; i < s * s; i += blockDim.x)
+    blk[i] = blocks[(long long)b * s * s + i];
+  for (int i = tid; i < L1; i += blockDim.x) {
+    ii[i] = 0.0f;
+    ii[i * L1] = 0.0f;
+  }
+  __syncthreads();
+  for (int i = tid; i < L * L; i += blockDim.x) {
+    const float v = (float)win[i];
+    ii[(i / L + 1) * L1 + i % L + 1] = __fmul_rn(v, v);
+  }
+  __syncthreads();
+  if (tid < L) xla_prefix(ii + L1 + tid + 1, L, L1);    // along y
+  __syncthreads();
+  if (tid < L) xla_prefix(ii + (tid + 1) * L1 + 1, L, 1);  // along x
+  __syncthreads();
+  float best = __int_as_float(0x7f800000);
+  int bi = 0x7fffffff;
+  for (int k = tid; k < D * D; k += blockDim.x) {
+    const int dy = k / D, dx = k % D;
+    Acc corr = 0;
+    for (int i = 0; i < s; ++i) {
+      const int* wr = win + (dy + i) * L + dx;
+      const int* br = blk + i * s;
+      for (int j = 0; j < s; ++j) corr += (Acc)wr[j] * (Acc)br[j];
+    }
+    const float e = __fadd_rn(
+        __fsub_rn(__fsub_rn(ii[(dy + s) * L1 + dx + s], ii[(dy + s) * L1 + dx]),
+                  ii[dy * L1 + dx + s]),
+        ii[dy * L1 + dx]);
+    const float sse = __fsub_rn(e, __fmul_rn(2.0f, (float)corr));
+    const float bits = __fadd_rn(mvb[abs(4 * (cy + dy - r))],
+                                 mvb[abs(4 * (cx + dx - r))]);
+    const float c = __fmaf_rn(lam_m, bits, sse);
+    if (c < best) {
+      best = c;
+      bi = k;
+    }
+  }
+  rc[tid] = best;
+  ri[tid] = bi;
+  __syncthreads();
+  for (int off = blockDim.x >> 1; off > 0; off >>= 1) {
+    if (tid < off) {
+      const float c2 = rc[tid + off];
+      const int i2 = ri[tid + off];
+      if (c2 < rc[tid] || (c2 == rc[tid] && i2 < ri[tid])) {
+        rc[tid] = c2;
+        ri[tid] = i2;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    mvx[b] = cx + ri[0] % D - r;
+    mvy[b] = cy + ri[0] / D - r;
+  }
+}
+
+}  // namespace
+
+extern "C" int me_full_launch(const int* blocks, const int* ref,
+                              const int* xs, const int* ys, const int* cx0,
+                              const int* cy0, const float* mvb, float lam_m,
+                              int n, int s, int r, int h, int w, int maxv,
+                              int* mvx, int* mvy, void* stream) {
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int L = s + 2 * r;
+  const size_t smem = (size_t)(L * L + s * s) * sizeof(int)
+      + (size_t)(L + 1) * (L + 1) * sizeof(float)
+      + (size_t)threads * (sizeof(float) + sizeof(int));
+  // the correlation fits 32 unsigned bits when s^2 maxv^2 < 2^32
+  const bool narrow = (double)s * s * maxv * (double)maxv < 4294967296.0;
+  cudaError_t err;
+  if (narrow) {
+    err = cudaFuncSetAttribute(me_full_kernel<unsigned>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    me_full_kernel<unsigned><<<n, threads, smem, (cudaStream_t)stream>>>(
+        blocks, ref, xs, ys, cx0, cy0, mvb, lam_m, s, r, h, w, mvx, mvy);
+  } else {
+    err = cudaFuncSetAttribute(me_full_kernel<unsigned long long>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    me_full_kernel<unsigned long long>
+        <<<n, threads, smem, (cudaStream_t)stream>>>(
+            blocks, ref, xs, ys, cx0, cy0, mvb, lam_m, s, r, h, w, mvx, mvy);
+  }
+  return (int)cudaGetLastError();
 }

@@ -22,8 +22,9 @@
 //   order 0 with a side of 64: windows of min(H,32) x min(W,32) summed
 //     row-major, then W0+W1 or (W00+W01)+(W10+W11);
 //   order 1 (row lanes, H = 8..32): lane v sums rows v, v+8, ... each
-//     left to right, then the same halving tree (4-wide blocks, and the
-//     LFNST stage's 8x8 rate);
+//     left to right, then the same halving tree (4-wide blocks, the
+//     LFNST stage's 8x8 rate, and the 8-wide blocks of vvc's sharded
+//     program); at H = 4, four lanes, then (l0+l2)+(l1+l3);
 //   order 2 (tail, W = 16, 32): per row, columns 0..W-9 as in order 0,
 //     the tree, then the last 8 columns one by one (blocks of <= 8 rows).
 //
@@ -101,18 +102,22 @@ __global__ void quant_rate_kernel(const int* __restrict__ coeff,
                     : __fadd_rn(win[0], win[1]);
     return;
   }
-  if (order == 1) {  // row lanes, 8 <= h <= 32
-    if (threadIdx.x < 8) {
+  if (order == 1) {  // row lanes: 8 at 8 <= h <= 32, 4 at h = 4
+    const int nl = h < 8 ? h : 8;
+    if (threadIdx.x < nl) {
       const int v = threadIdx.x;
       float acc = bits[v * w];
-      for (int r = 0; r < h; r += 8) {
+      for (int r = 0; r < h; r += nl) {
         const float* row = bits + (r + v) * w;
         for (int c = (r == 0); c < w; ++c) acc = __fadd_rn(acc, row[c]);
       }
       lanes[v] = acc;
     }
     __syncthreads();
-    if (threadIdx.x == 0) rate[blockIdx.x] = tree8(lanes);
+    if (threadIdx.x == 0)
+      rate[blockIdx.x] = nl == 4 ? __fadd_rn(__fadd_rn(lanes[0], lanes[2]),
+                                             __fadd_rn(lanes[1], lanes[3]))
+                                 : tree8(lanes);
     return;
   }
   // order 0 (all W/8 parts in lanes) or 2 (the last 8 columns one by one)
@@ -168,7 +173,7 @@ extern "C" int quant_rate_launch(const int* coeff, const float* log_tab,
                                  void* stream) {
   const bool shape_ok =
       side_ok(w) && side_ok(h) &&
-      (order == 1 ? (h >= 8 && h <= 32)
+      (order == 1 ? (h == 4 || (h >= 8 && h <= 32))
                   : (order == 2 ? (h <= 8 && (w == 16 || w == 32))
                                 : (order == 0 && w >= 8)));
   if (n < 0 || !shape_ok || shift <= 0 || qbits <= 0 || sh6 < 0 || sh6 > 29)

@@ -17,6 +17,19 @@
 // and for T > 32 each warp adds its share with an integer atomic into a
 // zeroed output (integer addition, so the result does not depend on the
 // order).  Bound: bytes — the predictions are read once (N*M*H*W*4 B).
+//
+// block_dist replaces vvc/kernels/satd.py:26,33 sse_batch and sad_batch
+// ([N,H,W] x [N,H,W] -> [N], eager jnp sums on the TPU), and the float32
+// block error of vvc/enc/inter_search.py:391 me_pred_program.  SAD is an
+// exact int32 sum.  SSE is vvc's float32 sum of d^2: below 2^24 every
+// order gives the exact integer, which the kernel sums in int64; above it
+// takes the order XLA-CPU compiles the eager reduce to (jax 0.9.0, read
+// from the object code and held by tests/test_torch_r4me.py): 8x8 row
+// lanes (lane r sums row r left to right, then the halving tree
+// ((l0+l4)+(l2+l6))+((l1+l5)+(l3+l7))), 64x64 four 32x32 windows each
+// row-major from 0 then (W00+W01)+(W10+W11), every other shape row-major
+// from 0.  One thread per block: the sums above 2^24 are sequential, and a
+// block is at most 4096 samples.  Bound: bytes (both inputs read once).
 #include <cuda_runtime.h>
 
 template <int T>
@@ -97,5 +110,71 @@ extern "C" int satd_launch(const int* pred, const int* orig, int* out, int n,
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   satd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       pred, orig, out, m, h, w, t, tiles_x, tiles, lanes, total);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__device__ __forceinline__ float seq_sq(const int* a, const int* b, int w,
+                                        int y0, int y1, int x0, int x1) {
+  float acc = 0.0f;
+  for (int y = y0; y < y1; ++y)
+    for (int x = x0; x < x1; ++x) {
+      const float d = (float)(a[y * w + x] - b[y * w + x]);
+      acc = __fadd_rn(acc, __fmul_rn(d, d));
+    }
+  return acc;
+}
+
+__global__ void block_dist_kernel(const int* __restrict__ a,
+                                  const int* __restrict__ b, int n, int h,
+                                  int w, int sad, float* __restrict__ sse,
+                                  int* __restrict__ sad_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long hw = (long long)h * w;
+  const int* pa = a + i * hw;
+  const int* pb = b + i * hw;
+  if (sad) {
+    int s = 0;
+    for (long long k = 0; k < hw; ++k) s += abs(pa[k] - pb[k]);
+    sad_out[i] = s;
+    return;
+  }
+  long long ex = 0;
+  for (long long k = 0; k < hw; ++k) {
+    const long long d = pa[k] - pb[k];
+    ex += d * d;
+  }
+  if (ex < (1LL << 24)) {
+    sse[i] = (float)ex;
+    return;
+  }
+  if (h == 8 && w == 8) {
+    float l[8];
+    for (int r = 0; r < 8; ++r) l[r] = seq_sq(pa, pb, w, r, r + 1, 0, 8);
+    sse[i] = __fadd_rn(__fadd_rn(__fadd_rn(l[0], l[4]), __fadd_rn(l[2], l[6])),
+                       __fadd_rn(__fadd_rn(l[1], l[5]), __fadd_rn(l[3], l[7])));
+  } else if (h == 64 && w == 64) {
+    const float w00 = seq_sq(pa, pb, w, 0, 32, 0, 32);
+    const float w01 = seq_sq(pa, pb, w, 0, 32, 32, 64);
+    const float w10 = seq_sq(pa, pb, w, 32, 64, 0, 32);
+    const float w11 = seq_sq(pa, pb, w, 32, 64, 32, 64);
+    sse[i] = __fadd_rn(__fadd_rn(w00, w01), __fadd_rn(w10, w11));
+  } else {
+    sse[i] = seq_sq(pa, pb, w, 0, h, 0, w);
+  }
+}
+
+}  // namespace
+
+extern "C" int block_dist_launch(const int* a, const int* b, int n, int h,
+                                 int w, int sad, float* sse, int* sad_out,
+                                 void* stream) {
+  if (n == 0) return 0;
+  const int threads = 128;
+  block_dist_kernel<<<(n + threads - 1) / threads, threads, 0,
+                      (cudaStream_t)stream>>>(a, b, n, h, w, sad, sse,
+                                              sad_out);
   return (int)cudaGetLastError();
 }

@@ -38,9 +38,16 @@ packed `cp0`/`cp1` fields).
 vvc's DP looks the intra costs up by int size in a dict keyed by (w, h)
 shapes, so it never finds them: every leaf of an inter picture is inter,
 and program (1) is computed and not read.  The port reproduces this.
+
+The r4 engine (vvc's MCTF before the window search replaced it) is here
+too: `me_pred_program` — the integer full search `int_me` (CUDA kernel
+`me_full`), the half- then quarter-pel refine `frac_refine` over phase
+planes (kernels `phase_gather` and `satd`) and the prediction plane with
+its per-block error (kernel `block_dist`).
 """
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -50,8 +57,10 @@ from vvc_torch.enc import me as me_mod
 from vvc_torch.enc.rdo import (SPLIT_BITS, _candidate_sizes, _fma_f32,
                                _sse_f32, eval_all_sizes, lambda_f32,
                                pack_planes, rd_lambda, unpack_results)
+from vvc_torch import ops
+from vvc_torch.kernels.mc import gather_pred_planes
 from vvc_torch.kernels.quant import quant_rate
-from vvc_torch.kernels.satd import satd_batch
+from vvc_torch.kernels.satd import satd_batch, sse_batch
 from vvc_torch.kernels.transform import (fwd_transform_batch,
                                          inv_transform_batch)
 from vvc_torch.model.frame import Leaf
@@ -470,3 +479,188 @@ def _dp_backtrack_inter(intra_res, inter, w, h, qp, sizes, ctu_size, min_cu):
         for cx in range(0, w, ctu_size):
             walk(cx, cy, ctu_size)
     return split_map, leaf_map, leaves
+
+
+# ---------------------------------------------------------------------------
+# the r4 engine: integer full search, fractional refine over phase planes
+# ---------------------------------------------------------------------------
+#
+# vvc/enc/inter_search.py:70 `_int_me_dev` scores every offset of ±R around
+# a centre by SSE(d) = Σw²(d) − 2·corr(d) (+ Σo², a constant): the window
+# energy from a float32 integral image, the correlation by a grouped
+# convolution.  Its float32 arithmetic, as XLA-CPU compiles it (jax 0.9.0,
+# optimised HLO and x86 object code of `me_pred_program`):
+#   * each `jnp.cumsum` of the integral image becomes a blocked
+#     reduce-window: blocks of 16, a sequential prefix inside each, plus the
+#     sequential sum of the earlier blocks' totals (`xla_cumsum`);
+#   * e = ((ii[d+S, d'+S] − ii[d+S, d']) − ii[d, d'+S]) + ii[d, d'];
+#   * the convolution is a runtime Eigen call; its order is not reproduced:
+#     the port sums it exactly and rounds once, which is vvc's value
+#     whenever it is below 2^24 (8-bit samples at S ≤ 16);
+#   * cost = fma(λ_m, bits(4(cy+d−R)) + bits(4(cx+d'−R)), e − 2·corr), the
+#     first minimum in raster order.
+# vvc maps chunks of CHUNK = 1024 blocks (zero-padded) through `lax.map`;
+# every block is computed alone, so the port runs them all at once.
+
+CHUNK = 1024
+
+
+def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """float32 cumulative sum along `dim` in XLA-CPU's blocked order: a
+    sequential prefix inside each block of 16, plus the sequential float32
+    sum of the earlier blocks' totals."""
+    x = x.to(torch.float32).movedim(dim, 0)
+    out = torch.empty_like(x)
+    base = torch.zeros_like(x[0])
+    for b in range(0, x.shape[0], 16):
+        acc = torch.zeros_like(x[0])
+        for i in range(b, min(b + 16, x.shape[0])):
+            acc = acc + x[i]
+            out[i] = acc + base
+        base = base + acc
+    return out.movedim(0, dim)
+
+
+def int_me_plain(blocks: torch.Tensor, ref: torch.Tensor, xs, ys, size: int,
+                 radius: int, lam_m, cx0, cy0):
+    """Plain twin of `_int_me_dev`: blocks [N, S, S] and ref [H, W]
+    (integer samples), block origins xs, ys and centres cx0, cy0 [N] →
+    full-pel (mvx, mvy) int32 [N]."""
+    s, r = size, radius
+    D, L = 2 * r + 1, size + 2 * radius
+    h, w = ref.shape
+    dev = ref.device
+    cx0 = cx0.to(torch.int64)
+    cy0 = cy0.to(torch.int64)
+    k = torch.arange(L, device=dev)
+    yy = (ys.to(torch.int64)[:, None] + cy0[:, None] - r + k).clamp(0, h - 1)
+    xx = (xs.to(torch.int64)[:, None] + cx0[:, None] - r + k).clamp(0, w - 1)
+    win = ref.to(torch.int64)[yy[:, :, None], xx[:, None, :]]
+    bl = blocks.to(torch.int64)
+    corr = torch.zeros((win.shape[0], D, D), dtype=torch.int64, device=dev)
+    for i in range(s):
+        for j in range(s):
+            corr += win[:, i:i + D, j:j + D] * bl[:, i, j, None, None]
+    ii = xla_cumsum(xla_cumsum((win * win).to(torch.float32), 1), 2)
+    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
+    e = ((ii[:, s:s + D, s:s + D] - ii[:, s:s + D, :D])
+         - ii[:, :D, s:s + D]) + ii[:, :D, :D]
+    sse = e - 2.0 * corr.to(torch.float32)
+    d = torch.arange(D, device=dev)
+    by = me_mod.mv_bits(4 * (cy0[:, None] + d - r))
+    bx = me_mod.mv_bits(4 * (cx0[:, None] + d - r))
+    cost = _fma_f32(np.float32(lam_m), by[:, :, None] + bx[:, None, :], sse)
+    flat = torch.argmin(cost.reshape(cost.shape[0], -1), dim=1)
+    return ((cx0 + flat % D - r).to(torch.int32),
+            (cy0 + flat // D - r).to(torch.int32))
+
+
+def _int_me_cuda(blocks, ref, xs, ys, size: int, radius: int, lam_m, cx0,
+                 cy0):
+    ops.check_cuda_i32("me_full", blocks, ref, xs, ys, cx0, cy0)
+    n = blocks.shape[0]
+    if tuple(blocks.shape[1:]) != (size, size) or not 0 <= radius <= 64 \
+            or size + 2 * radius > 256:
+        raise ValueError(f"me_full: blocks {tuple(blocks.shape)}, radius "
+                         f"{radius}")
+    dev = blocks.device
+    mvx = torch.empty(n, dtype=torch.int32, device=dev)
+    mvy = torch.empty_like(mvx)
+    if n == 0:
+        return mvx, mvy
+    # the largest sample bounds the correlation's integer accumulator
+    maxv = max(int(blocks.max()), int(ref.max()), 0)
+    fn = ops.lib("me_full").me_full_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    err = fn(blocks.data_ptr(), ref.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+             cx0.data_ptr(), cy0.data_ptr(),
+             me_mod._mv_bits_dev(str(dev)).data_ptr(),
+             float(np.float32(lam_m)), n, size, radius, ref.shape[0],
+             ref.shape[1], maxv, mvx.data_ptr(), mvy.data_ptr(),
+             ops.stream_ptr(blocks))
+    ops.launched("me_full", err)
+    return mvx, mvy
+
+
+def int_me(blocks: torch.Tensor, ref: torch.Tensor, xs, ys, size: int,
+           radius: int, lam_m, cx0, cy0):
+    """vvc/enc/inter_search.py:70 `_int_me_dev` → full-pel (mvx, mvy) int32
+    [N].  The samples are non-negative integers (vvc passes them as
+    float32).  CUDA tensors →
+    vvc_torch/csrc/me.cu `me_full`; CPU tensors or `ops.plain()` →
+    int_me_plain."""
+    reach = 4 * (max(int(cx0.abs().max()), int(cy0.abs().max()))
+                 + radius) if cx0.numel() else 0
+    if reach >= me_mod.MV_BITS_N:
+        raise ValueError(f"int_me: |MV| up to {reach} qpel is outside the "
+                         f"MV-bits table")
+    if ops.use_kernel(blocks):
+        return _int_me_cuda(*(t.to(torch.int32).contiguous() for t in
+                              (blocks, ref, xs, ys)), size, radius, lam_m,
+                            cx0.to(torch.int32).contiguous(),
+                            cy0.to(torch.int32).contiguous())
+    return int_me_plain(blocks, ref, xs, ys, size, radius, lam_m, cx0, cy0)
+
+
+_FRAC_OFF = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1),
+             (-1, -1), (1, -1), (-1, 1), (1, 1)]
+
+
+def frac_refine(orig: torch.Tensor, planes: torch.Tensor, xs, ys, mvx, mvy,
+                size: int, lam_m):
+    """vvc/enc/inter_search.py:130 `_frac_refine_dev`: the half-pel, then
+    the quarter-pel stage, each over the 8 offsets of `_FRAC_OFF` taken
+    from the running best (a candidate that wins moves the centre of the
+    ones after it); cost fma(λ_m, bits(cx) + bits(cy), SATD) (XLA-CPU's
+    contraction), a strict `<` keeping the earlier candidate.  Returns
+    (mvx, mvy int32 [N], cost float32 [N])."""
+    lam = np.float32(lam_m)
+    orig = orig.to(torch.int32)
+
+    def cost(cx, cy):
+        pred = gather_pred_planes(planes, xs, ys, cx, cy, size)
+        return _fma_f32(lam, me_mod.mv_bits(cx) + me_mod.mv_bits(cy),
+                        satd_batch(pred, orig).to(torch.float32))
+
+    mvx = mvx.to(torch.int32)
+    mvy = mvy.to(torch.int32)
+    best = cost(mvx, mvy)
+    for step in (2, 1):
+        for dx, dy in _FRAC_OFF[1:]:
+            cx, cy = mvx + dx * step, mvy + dy * step
+            c = cost(cx, cy)
+            m = c < best
+            best = torch.where(m, c, best)
+            mvx = torch.where(m, cx, mvx)
+            mvy = torch.where(m, cy, mvy)
+    return mvx, mvy, best
+
+
+def me_pred_program(y: torch.Tensor, phase: torch.Tensor, size: int,
+                    radius: int, w: int, h: int, lam_m):
+    """vvc/enc/inter_search.py:391 `me_pred_program`: single-reference ME of
+    every size×size block of y [H, W] against the reference whose phase
+    planes are `phase` [4, 4, H, W] (`kernels.mc.interp_luma_planes`):
+    `int_me` from centre 0, `frac_refine`, then the prediction
+    (`gather_pred_planes`) → (plane [ny·S, nx·S] int32, err [ny, nx]
+    float32 = mean((pred − block)²)).  vvc's float32 sum of the error runs
+    row-major from 0 (read from its object code at S = 16): the SSE mode
+    of kernel `block_dist`, times 1/S² (exact)."""
+    s = size
+    dev = y.device
+    ny, nx = h // s, w // s
+    blocks = me_mod.raster_blocks(y, ny, nx, s).to(torch.int32)
+    xs = (torch.arange(nx, device=dev, dtype=torch.int32) * s).repeat(ny)
+    ys = (torch.arange(ny, device=dev, dtype=torch.int32) * s
+          ).repeat_interleave(nx)
+    zero = torch.zeros(ny * nx, dtype=torch.int32, device=dev)
+    ix, iy = int_me(blocks, phase[0, 0], xs, ys, s, radius, lam_m, zero,
+                    zero)
+    fx, fy, _ = frac_refine(blocks, phase, xs, ys, ix * 4, iy * 4, s, lam_m)
+    pred = gather_pred_planes(phase, xs, ys, fx, fy, s)
+    err = sse_batch(pred, blocks) * (1.0 / (s * s))
+    plane = (pred.reshape(ny, nx, s, s).permute(0, 2, 1, 3)
+             .reshape(ny * s, nx * s))
+    return plane, err.reshape(ny, nx)

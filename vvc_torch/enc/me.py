@@ -39,7 +39,8 @@ coarse cell sums (c8 = (c4₀₀ + c4₀₁) + (c4₁₀ + c4₁₁), c16 likewi
 SSE sums above 2^24 in XLA's order (`sse_f32_me`).  Every argmin keeps
 the first minimum (strict `<` in vvc's candidate order).
 
-Not ported here: `eval_ref`, which has no caller in vvc (queue end).
+`eval_ref` (vvc/enc/me.py:261, no caller in vvc) is the composition of the
+window centres, the integer refine and the quarter-pel refine.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ from vvc_torch.cabac.rates import log_scale_f32
 from vvc_torch.enc.rdo import _fma_f32
 from vvc_torch.kernels.mc import LUMA_FILTERS
 from vvc_torch.kernels.quant import xla_block_sum
-from vvc_torch.kernels.satd import satd_batch_plain
+from vvc_torch.kernels.satd import satd_batch_plain, sse_f32
 from vvc_torch.rom.log_table import xla_log_f32
 
 PAD = 16        # edge padding baked into cached reference planes
@@ -123,36 +124,13 @@ def coarse_bias_table(r: int = COARSE_R) -> np.ndarray:
     return out
 
 
-def _seq_sum_f32(x: torch.Tensor) -> torch.Tensor:
-    """[M, K] float32 → [M]: summed left to right from 0 in float32."""
-    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    for j in range(x.shape[1]):
-        acc = acc + x[:, j]
-    return acc
-
-
 def sse_f32_me(d: torch.Tensor) -> torch.Tensor:
-    """Σ d² per [M, S, S] block as vvc's `_int_refine` sums it in float32.
-    Below 2^24 every partial sum is an exact integer, so the exact int64
-    sum is the answer.  Above (10-bit noise at S ≥ 8, 8 bit at S ≥ 32),
-    XLA's order: S = 8, 16, 32 sequentially in row-major order; S = 64 in
-    four 32×32 windows, each row-major from 0, then
-    (W00 + W01) + (W10 + W11)."""
-    m, s, _ = d.shape
-    dl = d.to(torch.int64)
-    exact = (dl * dl).sum(dim=(1, 2))
-    out = exact.to(torch.float32)
-    big = exact >= (1 << 24)
-    if bool(big.any()):
-        sq = (dl[big] * dl[big]).to(torch.float32)
-        if s == 64:
-            win = sq.reshape(-1, 2, 32, 2, 32).permute(0, 1, 3, 2, 4)
-            w_ = [_seq_sum_f32(win[:, i, j].reshape(-1, 1024))
-                  for i in (0, 1) for j in (0, 1)]
-            out[big] = (w_[0] + w_[1]) + (w_[2] + w_[3])
-        else:
-            out[big] = _seq_sum_f32(sq.reshape(-1, s * s))
-    return out
+    """Σ d² per [M, S, S] block as vvc's `_int_refine` sums it in float32:
+    exact below 2^24; above (10-bit noise at S ≥ 8, 8 bit at S ≥ 32), XLA's
+    order — S = 8, 16, 32 sequentially in row-major order; S = 64 in four
+    32×32 windows, each row-major from 0, then (W00 + W01) + (W10 + W11)
+    (`kernels.satd.sse_f32` without its 8×8 row lanes)."""
+    return sse_f32(d, lanes8=False)
 
 
 # --------------------------------------------------------------------
@@ -516,6 +494,22 @@ def qpel_refine(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, iy, ix,
                                    (refpad, ob, ys, xs, iy, ix)),
                                  lam_m, s, bit_depth)
     return qpel_refine_plain(refpad, ob, ys, xs, iy, ix, lam_m, s, bit_depth)
+
+
+def eval_ref(refpad: torch.Tensor, ob: torch.Tensor, ys, xs, cy, cx, lam_m,
+             s: int, h: int, w: int, bit_depth: int) -> dict:
+    """vvc/enc/me.py:261 `eval_ref`: `_win_centers` + `_gather_windows` +
+    `_eval_from_win` — the integer refine around the clipped centre
+    (`int_refine`, kernel `me_int`), then the quarter-pel refine
+    (`qpel_refine`, kernel `me_qpel`).  Returns vvc's dict: mvy, mvx
+    (quarter-pel), cost, pred [N, s, s], w2 (the window re-centred on the
+    integer winner, [N, s + 2·M2, s + 2·M2]), iy, ix (integer-pel)."""
+    iy, ix, _, _ = int_refine(refpad, ob, ys, xs, cy, cx, lam_m, s, h, w)
+    mvy, mvx, cost, pred = qpel_refine(refpad, ob, ys, xs, iy, ix, lam_m, s,
+                                       bit_depth)
+    w2 = _gather(refpad, ys + PAD + iy - M2, xs + PAD + ix - M2,
+                 s + 2 * M2).to(torch.int32)
+    return dict(mvy=mvy, mvx=mvx, cost=cost, pred=pred, w2=w2, iy=iy, ix=ix)
 
 
 # --------------------------------------------------------------------

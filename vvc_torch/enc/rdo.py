@@ -243,8 +243,9 @@ def eval_blocks(orig: torch.Tensor, refs: torch.Tensor, size: int, qp: int,
     a TT mid plane's / the search runs as vvc's vmapped tile program,
     whose SSE sums XLA orders differently (sse_order).  sharded: the
     search runs as one of vvc's own programs (sharded_rdo_step's, or the
-    shard_map of the sharded encode), where XLA sums the 8×8 level rates
-    of stages A and B along the rows, as stage C's."""
+    shard_map of the sharded encode), where XLA sums the level rates of
+    stages A and B of every 8-wide block (8×8 and the MTT shapes 8×16 and
+    8×32) along the rows, as stage C's."""
     w = size
     h = w if h is None else h
     if w != h and (try_mip or try_lfnst):
@@ -341,12 +342,12 @@ def _rd_pass(resi, pred, tr, qp: int, lam, extra_bits, bit_depth: int,
     pred with transform pair tr: fwd transform → quant + level rate +
     dequant → inverse → SSE, then sse + λ·(rate + extra_bits) rounded once
     (vvc/enc/rdo.py rd_pass).  site, vmapped: which of the program's SSE
-    sums this is (sse_order); sharded: an 8×8 rate sum runs along the rows
-    (eval_blocks)."""
+    sums this is (sse_order); sharded: an 8-wide block's rate sum runs
+    along the rows (eval_blocks)."""
     th, tv = tr
     coeff = fwd_transform_batch(resi, bit_depth, th, tv)
     rate, deq = quant_rate(coeff, qp, bit_depth,
-                           row_lanes=sharded and resi.shape[1:] == (8, 8))
+                           row_lanes=sharded and resi.shape[2] == 8)
     rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
     rec = (pred + rec_resi).clamp(0, (1 << bit_depth) - 1)
     sse = _sse_f32(rec - pred - resi,
@@ -544,7 +545,8 @@ def _isp_bits_f32(qp: int) -> np.float32:
 
 def eval_isp_dir(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                  w: int, h: int, modes: torch.Tensor, qp: int,
-                 bit_depth: int, direction: int) -> torch.Tensor:
+                 bit_depth: int, direction: int,
+                 sharded: bool = False) -> torch.Tensor:
     """RD cost [N] f32 of coding each W×H block at (xs, ys) with ISP in
     `direction`, using its (already decided) intra mode.  Port of
     vvc/enc/rdo.py:126: every sub-TU is predicted from *original*
@@ -553,7 +555,9 @@ def eval_isp_dir(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     with its implicit DST7/DCT2 pair (transform, quant_rate, inverse), and
     its cost accumulated as XLA's program does it: t = fma(λ, rate + 0.8,
     t + sse) sub-TU by sub-TU (the first: fma(λ, rate + 0.8, sse)), then
-    t + E·1.425 (λ·2.5 folded, see _isp_bits_f32)."""
+    t + E·1.425 (λ·2.5 folded, see _isp_bits_f32).  sharded: the search
+    runs as vvc's sharded program, where an 8-wide sub-TU's rate sums along
+    the rows (read from its search vectors, ROADMAP §3)."""
     from vvc_torch.kernels.isp import isp_partitions, isp_tr_types
     lam, _ = lambda_f32(qp)
     cbf = np.float32(_ISP_CBF_BITS)
@@ -574,7 +578,8 @@ def eval_isp_dir(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
         resi = plane[oy, ox] - pred
         th, tv = isp_tr_types(sw, sh)
         coeff = fwd_transform_batch(resi, bit_depth, th, tv)
-        rate, deq = quant_rate(coeff, qp, bit_depth)
+        rate, deq = quant_rate(coeff, qp, bit_depth,
+                               row_lanes=sharded and sw == 8)
         rec_resi = inv_transform_batch(deq, bit_depth, th, tv)
         sse = _sse_f32(rec_resi - resi, **sse_order(sh, sw, "isp"))
         acc = sse if cost is None else cost + sse
@@ -627,7 +632,7 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
         lam_bits = lam * mbits          # λ·bits, read twice: not contracted
         for d in (1, 2):
             c_isp = eval_isp_dir(plane, xs, ys, s, bh, m, qp, bit_depth,
-                                 d) + lam_bits
+                                 d, sharded > 0) + lam_bits
             better = mode_ok & (c_isp < cost)
             cost = torch.where(better, c_isp, cost)
             isp = torch.where(better, torch.full_like(isp, d), isp)
@@ -645,13 +650,14 @@ def eval_size_plane(plane: torch.Tensor, size: int, qp: int, bit_depth: int,
 
 def eval_mid_plane(plane: torch.Tensor, desc, qp: int, bit_depth: int,
                    lossless: bool, lfnst_enabled: bool,
-                   vmapped: bool = False):
+                   vmapped: bool = False, sharded: bool = False):
     """Leaf-cost plane for TT middle children.  Port of vvc/enc/rdo.py:398:
     desc ('TH', w) → (w, 16) blocks at (x = k·w, y = 8 + 32·r); ('TV', h)
     → (16, h) blocks at (x = 8 + 32·k, y = r·h).  Returns the 6-tuple of
     eval_size_plane (chroma decision and ISP off: TT mid leaves code
     chroma as DM).  vmapped: take the SSE orders of vvc's vmapped
-    program."""
+    program; sharded: the rate orders of its sharded program
+    (eval_blocks)."""
     ph, pw = plane.shape
     kind, s = desc
     dev = plane.device
@@ -678,7 +684,7 @@ def eval_mid_plane(plane: torch.Tensor, desc, qp: int, bit_depth: int,
     cost, mode, mts, lfnst = eval_blocks(blocks, refs, bw, qp, bit_depth,
                                          try_mts, lossless, try_mip,
                                          try_lfnst, h=bh, mid=True,
-                                         vmapped=vmapped)
+                                         vmapped=vmapped, sharded=sharded)
     z = torch.zeros_like(mode)
     return (cost.reshape(ny, nx), mode.reshape(ny, nx), mts.reshape(ny, nx),
             lfnst.reshape(ny, nx), z.reshape(ny, nx), z.reshape(ny, nx))
@@ -706,7 +712,7 @@ def _eval_all_sizes_impl(plane, sizes, qp, bit_depth, w, h, lossless=False,
         nx = (w // s, w // 32)[kind == "TV"]
         if ny and nx:
             out[desc] = eval_mid_plane(plane, desc, qp, bit_depth, lossless,
-                                       lfnst, vmapped)
+                                       lfnst, vmapped, sharded > 0)
     return out
 
 

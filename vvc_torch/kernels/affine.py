@@ -2,8 +2,10 @@
 
 Copy of the numpy half of vvc/kernels/affine.py (:46-251), which the
 motion field, deblocking's boundary strengths and the batched MC import
-even with affine off.  The batched affine ME (`affine_me_batch`,
-`_affine_me_jit`, JAX programs with no live caller) is not copied.
+even with affine off, and the port of its batched Gauss-Newton affine ME
+(`affine_me_batch`, vvc's `_affine_me_jit`): CUDA kernel `affine_gn`
+(vvc_torch/csrc/affine.cu) on a CUDA tensor, `affine_me_plain` on a CPU
+tensor or inside `ops.plain()`.
 
 TPU-native analog of the reference's affine stack
 (`VTM/source/Lib/CommonLib/InterPrediction.cpp` →
@@ -37,7 +39,12 @@ internals are documented in vvc_torch/kernels/mc.py):
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+import torch
+
+from vvc_torch import ops
 
 from vvc_torch.kernels.mc import LUMA_FILTERS, CHROMA_FILTERS
 
@@ -247,3 +254,182 @@ def affine_pred_batch_np(plane: np.ndarray, xs, ys, size: int,
     pred = np.clip((acc + 2048) >> 12, 0, (1 << bit_depth) - 1)
     return (pred.reshape(n, nb, nb, SB, SB).transpose(0, 1, 3, 2, 4)
             .reshape(n, size, size).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Batched Gauss-Newton affine ME (encoder only)
+# ---------------------------------------------------------------------------
+#
+# vvc/kernels/affine.py:253 `affine_me_batch` (`_affine_me_jit`, :295):
+# `iters` Gauss-Newton steps on a 4-parameter (tx, ty, a, b) or
+# 6-parameter (tx, ty, a, b, c, d) model, every block in lockstep.  Each
+# step warps the reference bilinearly (positions clipped to w − 1.001),
+# takes the gradients with a wrap at the block edge (jnp.roll), builds the
+# basis, A = BᵀB + 0.01·I and rhs = Bᵀe, and solves with `_solve_small`'s
+# unpivoted Gauss-Jordan in its row order.  Every operation is float32
+# with one rounding, in vvc's written order, with no contraction.  vvc's
+# S²-term dots (the einsums) run as XLA-CPU dot kernels whose order the
+# port does not reproduce; the port fixes its own: lane t of 256 sums the
+# products t, t + 256, ... from 0, then the lanes meet in a halving tree.
+# The kernel and this twin share that order, so they agree bit for bit;
+# against vvc the corner MVs agree up to the rounding of 4·cp where it lies
+# within float32 noise of a half-integer (tests/test_torch_r4me.py).
+
+AFF_GN_LANES = 256
+AFF_GN_CLIP = 1 << 17
+
+
+def _lane_sum(p: torch.Tensor) -> torch.Tensor:
+    """[..., P] float32 (P a power of 2) → [...]: lane t of min(256, P)
+    sums p[t], p[t + lanes], ... left to right from 0, then the lanes are
+    added in a halving tree (lane t += lane t + half)."""
+    n = p.shape[-1]
+    lanes = min(AFF_GN_LANES, n)
+    acc = torch.zeros(p.shape[:-1] + (lanes,), dtype=torch.float32,
+                      device=p.device)
+    for k in range(0, n, lanes):
+        acc = acc + p[..., k:k + lanes]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def _gn_field(th: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+              n_params: int):
+    """The model's motion (vx, vy) at positions gx (x), gy (y), in vvc's
+    order: vx = (t0 + t2·x) − t3·y, vy = (t1 + t3·x) + t2·y (4 parameters)
+    or vx = (t0 + t2·x) + t4·y, vy = (t1 + t3·x) + t5·y (6)."""
+    t = [th[:, k, None, None] for k in range(th.shape[1])]
+    if n_params == 4:
+        return (t[0] + t[2] * gx) - t[3] * gy, (t[1] + t[3] * gx) + t[2] * gy
+    return (t[0] + t[2] * gx) + t[4] * gy, (t[1] + t[3] * gx) + t[5] * gy
+
+
+def _solve_small_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """vvc's `_solve_small`: Gauss-Jordan on [N, p, p+1] = [A | b] without
+    pivoting, row k normalised by its diagonal, then every other row i
+    takes M[i] − M[i, k]·M[k]."""
+    m = torch.cat([a, b[..., None]], dim=-1)
+    p = a.shape[1]
+    for k in range(p):
+        m[:, k] = m[:, k] / m[:, k, k:k + 1]
+        upd = m - m[:, :, k:k + 1] * m[:, k:k + 1, :]
+        upd[:, k] = m[:, k]
+        m = upd
+    return m[:, :, p]
+
+
+def affine_me_corners(blocks: torch.Tensor, ref: torch.Tensor, xs, ys,
+                      mv0x, mv0y, size: int, n_params: int = 4,
+                      iters: int = 4) -> torch.Tensor:
+    """The Gauss-Newton search of `_affine_me_jit` up to its last rounding:
+    blocks [N, S, S] and ref [H, W] float32 samples, origins xs, ys and
+    quarter-pel seeds (mv0x, mv0y) [N] → 4·cp [N, 3, 2] float32, the corner
+    MVs (TL, TR, BL) in quarter samples."""
+    dev = ref.device
+    n, s = blocks.shape[0], size
+    h, w = ref.shape
+    npar = 4 if n_params == 4 else 6
+    blocks = blocks.to(torch.float32)
+    ref = ref.to(torch.float32)
+    theta = torch.zeros((n, npar), dtype=torch.float32, device=dev)
+    theta[:, 0] = mv0x.to(torch.float32) / 4.0
+    theta[:, 1] = mv0y.to(torch.float32) / 4.0
+    gxp = torch.arange(s, dtype=torch.float32, device=dev)[None, None, :]
+    gyp = torch.arange(s, dtype=torch.float32, device=dev)[None, :, None]
+    xf = xs.to(torch.float32)[:, None, None]
+    yf = ys.to(torch.float32)[:, None, None]
+    hx, hy = float(np.float32(w - 1.001)), float(np.float32(h - 1.001))
+    for _ in range(iters):
+        vx, vy = _gn_field(theta, gxp, gyp, n_params)
+        px = ((xf + gxp) + vx).clamp(0.0, hx)
+        py = ((yf + gyp) + vy).clamp(0.0, hy)
+        x0, y0 = torch.floor(px), torch.floor(py)
+        ax, ay = px - x0, py - y0
+        x0i, y0i = x0.long(), y0.long()
+        x1i, y1i = (x0i + 1).clamp(max=w - 1), (y0i + 1).clamp(max=h - 1)
+        p00, p01 = ref[y0i, x0i], ref[y0i, x1i]
+        p10, p11 = ref[y1i, x0i], ref[y1i, x1i]
+        pred = ((1 - ay) * ((1 - ax) * p00 + ax * p01)
+                + ay * ((1 - ax) * p10 + ax * p11))
+        err = blocks - pred
+        gx = (pred.roll(-1, 2) - pred.roll(1, 2)) / 2.0
+        gy = (pred.roll(-1, 1) - pred.roll(1, 1)) / 2.0
+        if n_params == 4:
+            basis = [gx, gy, gx * gxp + gy * gyp, -gx * gyp + gy * gxp]
+        else:
+            basis = [gx, gy, gx * gxp, gy * gxp, gx * gyp, gy * gyp]
+        bf = [b.reshape(n, -1) for b in basis]
+        a = torch.empty((n, npar, npar), dtype=torch.float32, device=dev)
+        for i in range(npar):
+            for j in range(i, npar):
+                v = _lane_sum(bf[i] * bf[j])
+                a[:, i, j] = v + np.float32(1e-2) if i == j else v
+                a[:, j, i] = a[:, i, j]
+        rhs = torch.stack([_lane_sum(b * err.reshape(n, -1)) for b in bf],
+                          dim=1)
+        theta = theta + _solve_small_t(a, rhs)
+    corners = ((0.0, 0.0), (float(s), 0.0), (0.0, float(s)))
+    cp = torch.stack([torch.stack([c[:, 0, 0] for c in _gn_field(
+        theta, torch.tensor(px_, device=dev), torch.tensor(py_, device=dev),
+        n_params)], dim=-1) for px_, py_ in corners], dim=1)
+    return cp * 4.0
+
+
+def affine_me_plain(blocks: torch.Tensor, ref: torch.Tensor, xs, ys, mv0x,
+                    mv0y, size: int, n_params: int = 4,
+                    iters: int = 4) -> torch.Tensor:
+    """Plain twin of `_affine_me_jit` → cpmv [N, 3, 2] int32 quarter-pel:
+    `affine_me_corners` rounded half to even (jnp.round) and clipped to
+    ±2^17."""
+    cp4 = affine_me_corners(blocks, ref, xs, ys, mv0x, mv0y, size, n_params,
+                            iters)
+    return torch.round(cp4).clamp(-AFF_GN_CLIP, AFF_GN_CLIP - 1).to(
+        torch.int32)
+
+
+def _affine_gn_cuda(blocks, ref, xs, ys, mv0x, mv0y, size: int,
+                    n_params: int, iters: int) -> torch.Tensor:
+    ops.check_cuda_i32("affine_gn", xs, ys, mv0x, mv0y)
+    n = blocks.shape[0]
+    if tuple(blocks.shape[1:]) != (size, size) or size not in (4, 8, 16, 32,
+                                                               64):
+        raise ValueError(f"affine_gn: blocks {tuple(blocks.shape)}")
+    for t in (blocks, ref):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError("affine_gn: blocks and ref must be contiguous "
+                            "float32")
+    out = torch.empty((n, 3, 2), dtype=torch.int32, device=blocks.device)
+    if n == 0:
+        return out
+    h, w = ref.shape
+    fn = ops.lib("affine_gn").affine_gn_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    err = fn(blocks.data_ptr(), ref.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+             mv0x.data_ptr(), mv0y.data_ptr(), n, size, h, w,
+             4 if n_params == 4 else 6, iters,
+             float(np.float32(w - 1.001)), float(np.float32(h - 1.001)),
+             out.data_ptr(), ops.stream_ptr(blocks))
+    ops.launched("affine_gn", err)
+    return out
+
+
+def affine_me_batch(blocks, ref_plane, xs, ys, mv0x, mv0y, size: int,
+                    bit_depth: int, n_params: int = 4,
+                    iters: int = 4) -> torch.Tensor:
+    """vvc/kernels/affine.py:253 `affine_me_batch`: Gauss-Newton CPMV search
+    for N same-size square blocks → cpmv [N, 3, 2] int32 quarter-pel (TL,
+    TR, BL; BL meaningful with 6 parameters).  `bit_depth` is unused, as in
+    vvc.  CUDA tensors → vvc_torch/csrc/affine.cu `affine_gn`; CPU tensors
+    or `ops.plain()` → affine_me_plain."""
+    if ops.use_kernel(ref_plane):
+        return _affine_gn_cuda(
+            blocks.to(torch.float32).contiguous(),
+            ref_plane.to(torch.float32).contiguous(),
+            *(t.to(torch.int32).contiguous() for t in (xs, ys, mv0x, mv0y)),
+            size, n_params, iters)
+    return affine_me_plain(blocks, ref_plane, xs, ys, mv0x, mv0y, size,
+                           n_params, iters)

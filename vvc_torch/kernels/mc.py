@@ -22,10 +22,21 @@ Deviations from the reference, chosen for self-consistency + batchability
     lets both uni and bi prediction gather from the same phase planes.
 Both halves of the codec share these rules, so streams stay bit-exact
 end-to-end.
+
+The batched full-plane interpolation of the encoder's r4 search
+(`interp_luma_planes`, CUDA kernel `interp_planes`) and the gather of
+predictions from its phase planes (`gather_pred_planes`, kernel
+`phase_gather`) run on a CUDA tensor as vvc_torch/csrc/mc.cu, on a CPU
+tensor (or inside `ops.plain()`) as their plain twins.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+import torch
+
+from vvc_torch import ops
 
 # 8-tap luma DCTIF, quarter-pel phases (gain 64).
 LUMA_FILTERS = np.array([
@@ -429,3 +440,109 @@ def inter_pred_leaf(leaf, comp: int, refs_l0, refs_l1, bit_depth: int,
     p1 = mc_block_np(ref1, x0 >> 1, y0 >> 1, size >> 1, size >> 1,
                      mv1[0] - dq[0], mv1[1] - dq[1], bit_depth, chroma=True)
     return (p0 + p1 + 1) >> 1
+
+
+# ---------------------------------------------------------------------------
+# Batched full-plane interpolation (encoder search path)
+
+
+def interp_luma_planes_plain(plane: torch.Tensor, bit_depth: int
+                             ) -> torch.Tensor:
+    """Plain twin of vvc/kernels/mc.py:438 `interp_luma_planes`: [H, W]
+    int32 → [4, 4, H, W] int32 quarter-pel phase planes (phase [fy, fx];
+    [0, 0] is the integer-pel plane).  Edge-padded 3 left/top and 4
+    right/bottom; an int32 horizontal 8-tap pass [4, H+7, W] with no
+    intermediate shift, then the vertical pass, (acc + 2048) >> 12 and the
+    clip to [0, 2^bd − 1] — exact integers."""
+    h, w = plane.shape
+    dev = plane.device
+    mx = (1 << bit_depth) - 1
+    ry = torch.arange(-3, h + 4, device=dev).clamp(0, h - 1)
+    rx = torch.arange(-3, w + 4, device=dev).clamp(0, w - 1)
+    pp = plane.to(torch.int32)[ry][:, rx]
+    filt = [[int(v) for v in row] for row in LUMA_FILTERS]
+    hor = []
+    for fx in range(4):
+        acc = torch.zeros((h + 7, w), dtype=torch.int32, device=dev)
+        for k in range(8):
+            acc = acc + filt[fx][k] * pp[:, k:k + w]
+        hor.append(acc)
+    out = torch.empty((4, 4, h, w), dtype=torch.int32, device=dev)
+    for fy in range(4):
+        for fx in range(4):
+            acc = torch.zeros((h, w), dtype=torch.int32, device=dev)
+            for k in range(8):
+                acc = acc + filt[fy][k] * hor[fx][k:k + h]
+            out[fy, fx] = ((acc + 2048) >> 12).clamp(0, mx)
+    return out
+
+
+def _interp_cuda(plane: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    ops.check_cuda_i32("interp_planes", plane)
+    h, w = plane.shape
+    out = torch.empty((4, 4, h, w), dtype=torch.int32, device=plane.device)
+    fn = ops.lib("interp_planes").interp_planes_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(plane.data_ptr(), out.data_ptr(), h, w, (1 << bit_depth) - 1,
+             ops.stream_ptr(plane))
+    ops.launched("interp_planes", err)
+    return out
+
+
+def interp_luma_planes(plane: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    """[H, W] → [4, 4, H, W] int32 phase planes.  CUDA tensor →
+    vvc_torch/csrc/mc.cu `interp_planes`; CPU tensor or `ops.plain()` →
+    interp_luma_planes_plain."""
+    if ops.use_kernel(plane):
+        return _interp_cuda(plane.to(torch.int32).contiguous(), bit_depth)
+    return interp_luma_planes_plain(plane, bit_depth)
+
+
+def gather_pred_planes_plain(phase_planes: torch.Tensor, xs, ys, mvx, mvy,
+                             size: int) -> torch.Tensor:
+    """Plain twin of vvc/kernels/mc.py:482 `gather_pred_planes`: [N, S, S]
+    int32 predictions from [4, 4, H, W] phase planes for blocks at (xs, ys)
+    with quarter-pel MVs (mvx, mvy) [N]: the phase is mv & 3, the integer
+    part mv >> 2 (arithmetic), each coordinate clamped to the plane."""
+    h, w = phase_planes.shape[2:]
+    dev = phase_planes.device
+    mvx = mvx.to(torch.int64)
+    mvy = mvy.to(torch.int64)
+    o = torch.arange(size, device=dev)
+    yy = (ys.to(torch.int64)[:, None] + (mvy >> 2)[:, None] + o).clamp(
+        0, h - 1)
+    xx = (xs.to(torch.int64)[:, None] + (mvx >> 2)[:, None] + o).clamp(
+        0, w - 1)
+    return phase_planes[(mvy & 3)[:, None, None], (mvx & 3)[:, None, None],
+                        yy[:, :, None], xx[:, None, :]].to(torch.int32)
+
+
+def _gather_cuda(planes, xs, ys, mvx, mvy, size: int) -> torch.Tensor:
+    ops.check_cuda_i32("phase_gather", planes, xs, ys, mvx, mvy)
+    if planes.dim() != 4 or tuple(planes.shape[:2]) != (4, 4):
+        raise ValueError(f"phase_gather: planes {tuple(planes.shape)}")
+    n = xs.shape[0]
+    h, w = planes.shape[2:]
+    out = torch.empty((n, size, size), dtype=torch.int32, device=xs.device)
+    fn = ops.lib("phase_gather").phase_gather_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(planes.data_ptr(), xs.data_ptr(), ys.data_ptr(), mvx.data_ptr(),
+             mvy.data_ptr(), out.data_ptr(), n, size, h, w,
+             ops.stream_ptr(xs))
+    ops.launched("phase_gather", err)
+    return out
+
+
+def gather_pred_planes(phase_planes: torch.Tensor, xs, ys, mvx, mvy,
+                       size: int) -> torch.Tensor:
+    """[N, S, S] int32 predictions from the phase planes.  CUDA tensors →
+    vvc_torch/csrc/mc.cu `phase_gather`; CPU tensors or `ops.plain()` →
+    gather_pred_planes_plain."""
+    if ops.use_kernel(phase_planes):
+        return _gather_cuda(*(t.to(torch.int32).contiguous() for t in
+                              (phase_planes, xs, ys, mvx, mvy)), size)
+    return gather_pred_planes_plain(phase_planes, xs, ys, mvx, mvy, size)

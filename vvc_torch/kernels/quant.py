@@ -321,8 +321,9 @@ def _quant_rate_cuda(coeff: torch.Tensor, qp: int, bit_depth: int,
     if h not in _SIDES or w not in _SIDES or h * w < 32:
         raise ValueError(f"quant_rate: unsupported block {h}x{w}")
     order = _rate_order(h, w, row_lanes)
-    if order.get("row_lanes") and not 8 <= h <= 32:
-        raise ValueError(f"quant_rate: row lanes need 8..32 rows, not {h}")
+    if order.get("row_lanes") and not (h == 4 or 8 <= h <= 32):
+        raise ValueError(f"quant_rate: row lanes need 4 or 8..32 rows, "
+                         f"not {h}")
     if not order and w == 4:
         raise ValueError("quant_rate: a 4-wide block sums in row lanes")
     scale, offset, qbits = _quant_params(h, w, int(qp), bit_depth, intra)

@@ -8,8 +8,8 @@ loads the library that holds kernel `name` with ctypes.  The build happens at fi
 sources.
 
 Each kernel wrapper (in `vvc_torch.kernels`, `vvc_torch.enc.rdo`,
-`vvc_torch.enc.me`, `vvc_torch.dec.wavefront` and
-`vvc_torch.shard.filter`):
+`vvc_torch.enc.me`, `vvc_torch.enc.inter_search`, `vvc_torch.dec.wavefront`
+and `vvc_torch.shard.filter`):
   * on a CPU tensor runs the kernel's plain PyTorch version;
   * on a CUDA tensor launches the kernel, or raises — unless the caller is
     inside `plain()`, the one explicit way to run the plain version on the
@@ -66,6 +66,11 @@ SOURCES = {
     "wave_cclm": "cclm.cu",
     "wave_commit": "wavefront.cu",
     "tile_edge_deblock": "deblock.cu",
+    "interp_planes": "mc.cu",
+    "phase_gather": "mc.cu",
+    "block_dist": "satd.cu",
+    "me_full": "me.cu",
+    "affine_gn": "affine.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

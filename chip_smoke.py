@@ -33,12 +33,13 @@ the CLIs — and checks what comes out:
      filter statistics and the motion search's costs bit for bit), at the
      main paths' shapes, with CUDA-event times per 1080p frame (the SAO and
      ALF statistics on the recon of a 2b picture, after [7]; the four
-     motion-search kernels per 1080p B picture with 2 refs per list; the
-     three rect kernels, and the transforms and quant_rate at the rect
-     and ISP shapes, per 1080p frame of the slice-2c path; affine_search
-     and affine_dctif per 1080p B picture, reference 0 of each list at
-     sizes 64, 32 and 16; me_block_err per 1080p MCTF anchor, four
-     neighbours);
+     motion-search kernels per 1080p B picture with 2 refs per list, and
+     me_qpel per size, 64, 32, 16 and the 8x8 children, as the median of
+     7 timed runs; the three rect kernels, and the transforms and
+     quant_rate at the rect and ISP shapes, per 1080p frame of the
+     slice-2c path; affine_search and affine_dctif per 1080p B picture,
+     reference 0 of each list at sizes 64, 32 and 16; me_block_err per
+     1080p MCTF anchor, four neighbours);
   4. the 1080p search vectors, lossless, lossy (2a) and 2b, from the
      kernels against the plain path's;
   5. the lossless main path: recon equals the source in all planes, the
@@ -388,6 +389,70 @@ def grid_xy(size: int, w: int, h: int, dev):
           ).repeat_interleave(nx)
     xs = (torch.arange(nx, dtype=torch.int32, device=dev) * size).repeat(ny)
     return xs, ys
+
+
+def qpel_ops(s: int) -> int:
+    """Operations of one me_qpel block, the least the function needs
+    whatever implements it.  A filtered sample costs its non-zero taps as
+    multiply-adds, 2 operations each: 14, 16 and 14 for the phases 1, 2
+    and 3 (7, 8 and 7 taps), 44 for the three.  The candidates' offsets
+    in ±3 quarter-pel reach integer offsets -1 and 0 at a fractional
+    phase and 0 alone at phase 0, so the filtered samples are:
+    - the horizontal planes fx = 1..3 over the S+8 rows the vertical taps
+      reach and S+1 columns, 44 (S+8)(S+1);
+    - the vertical planes fy = 1..3 on S+1 rows, of the horizontal planes
+      fx = 1..3 on S+1 columns and of the integer columns (fx = 0) on S,
+      44 (3 (S+1)^2 + (S+1) S).
+    Then the 49 candidates' SATD, 9 operations a sample (the difference,
+    the two 8-point Hadamard passes' 3 + 3 add/subtracts, |.| and the
+    sum).  Shifts (fx = 0, fy = 0), rounding and clipping are not
+    counted.  The peak these are held to, 67 T/s float32, counts a
+    multiply-add as 2 operations; an add counted as 1 at that peak makes
+    the bound lower than the card's issue rate allows, never higher."""
+    return (44 * ((s + 8) * (s + 1) + 3 * (s + 1) ** 2 + (s + 1) * s)
+            + 49 * s * s * 9)
+
+
+def qpel_bytes(s: int, nblk: int) -> int:
+    """Bytes of one me_qpel launch: the blocks read and the predictions
+    written (int32), the four int32 inputs and three outputs a block, the
+    padded 1080p reference read once and the MV-bits table."""
+    return (nblk * (2 * s * s + 4 + 3) * 4 + (H_HD + 32) * (W_HD + 32) * 4
+            + 4096 * 4)
+
+
+def median_ms(fn, repeats: int = 7, warmup: int = 2) -> float:
+    """Median milliseconds of one call, each call timed alone by CUDA
+    events, after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def me_qpel_sizes(me, qcases) -> dict:
+    """me_qpel per size of a 1080p B picture: qcases maps s to the
+    qpel_refine arguments of each reference; the median of 7 timed runs of
+    all the references' launches (CUDA events, after 2 warm-up runs),
+    and the bound over the same launches (operations over 67 T/s float32,
+    or bytes over 3.35 TB/s, the larger)."""
+    out = {}
+    for s, calls in qcases.items():
+        nblk = calls[0][1].shape[0]
+        ms = median_ms(lambda: [me.qpel_refine(*a) for a in calls])
+        b_ms, by = bound_ms(len(calls) * qpel_bytes(s, nblk),
+                            len(calls) * nblk * qpel_ops(s))
+        out[s] = {"blocks": nblk, "launches": len(calls), "ms": ms,
+                  "bound_ms": b_ms, "bound_by": by}
+    return out
 
 
 def frames_equal(a, b) -> bool:
@@ -1710,6 +1775,7 @@ def main() -> int:
                      + 4 * n4y * n4x * 8 * (1 + 1 / 4 + 1 / 16),
                      4 * 289 * (3 * h4 * w4 + 4 * n4y * n4x))
         _, lam_m = rdo.lambda_f32(32)
+        qcases = {}
         for s in (64, 32, 16, 8):
             ps = 16 if s == 8 else s
             if ps == 16:
@@ -1754,6 +1820,7 @@ def main() -> int:
                 for a, b in zip(ik, ip):
                     compare("me_int", a, b)
                 qargs = (refpad[r], ob, ys_, xs_, ik[0], ik[1], lam_m, s, bd)
+                qcases.setdefault(s, []).append(qargs)
                 qk = me.qpel_refine(*qargs)
                 with ops.plain():
                     qp_ = me.qpel_refine(*qargs)
@@ -1773,15 +1840,13 @@ def main() -> int:
                          nblk * (s * s + 4 * 4) * 4
                          + (H_HD + 32) * (W_HD + 32) * 4 + 4096 * 4,
                          nblk * 81 * (3 * s * s + 4))
-                f = lambda: me.qpel_refine(*qargs)
-                k_ms = cuda_ms(f)
+                # the kernel's own time is taken per size below
                 with ops.plain():
-                    p_ms = cuda_ms(f, iters=1, warmup=0)
+                    p_ms = cuda_ms(lambda: me.qpel_refine(*qargs), iters=1,
+                                   warmup=0)
+                add_time("me_qpel", 0.0, p_ms, qpel_bytes(s, nblk),
+                         nblk * qpel_ops(s))
                 m2 = s + 12
-                add_time("me_qpel", k_ms, p_ms,
-                         nblk * (2 * s * s + 4 * 4 + 4 * 3) * 4
-                         + (H_HD + 32) * (W_HD + 32) * 4 + 4096 * 4,
-                         nblk * (7 * m2 * s * 16 + 49 * s * s * 25))
                 # yardstick: the DCTIF pass of all 49 offsets as one
                 # float64 conv2d of the 16 phase kernels over the windows;
                 # it reproduces the kernel's prediction of the winner
@@ -1814,6 +1879,14 @@ def main() -> int:
                 del w2, acc, sel, libp
             if ps == 16 and s == 16:
                 parent_ob, parent_ys, parent_xs = ob, ys_, xs_
+        if time_it:
+            # the kernel's time per size: the median of 7 timed runs of
+            # the four references' launches
+            sizes = me_qpel_sizes(me, qcases)
+            stats["me_qpel"]["ms"] = sum(v["ms"] for v in sizes.values())
+            print(f"[3] me_qpel per size, 1080p B picture, 4 refs, median "
+                  f"of 7 (CUDA events): {json.dumps(sizes)}", flush=True)
+        del qcases
         del planes, refpad, refds, preps
     # the slice-2c kernels at the 1080p shapes of the MTT + ISP main path,
     # per frame: the reference lines and 67 modes of the ten rect lattice

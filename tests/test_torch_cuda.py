@@ -393,9 +393,44 @@ def test_me_int_qpel_equal_plain(dev, size, bit_depth):
             assert torch.equal(a, b)
         got, want = _both(me.qpel_refine, rp, ob, ys, xs, got[0], got[1],
                           lam_m, size, bit_depth)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
-        assert torch.equal(got[3], want[3])
+        _assert_qpel_equal(got, want)
+    # me_qpel alone: N = 0, 1 and 7 (not a multiple of the 4 blocks a CTA
+    # takes at size 8); the windows of the first blocks on the four edges
+    # of the padded reference, the others anywhere; and a flat picture
+    # with lam_m = 0, where all 49 costs tie (the first, qy = qx = -3,
+    # must win)
+    for ref, cur, lam in ((tex[:h, :w], tex[4:4 + h, 3:3 + w], lam_m),
+                          (np.full((h, w), mx // 3), np.full((h, w), mx // 3),
+                           0.0)):
+        rp = me.prep_ref(torch.from_numpy(ref.astype(np.int32)).to(dev))[0]
+        hp, wp = rp.shape
+        for n in (0, 1, 7):
+            ys = rng.integers(0, h - size + 1, n)
+            xs = rng.integers(0, w - size + 1, n)
+            # the window's origin in the padded reference is ys + iy + 10
+            iy = rng.integers(-(ys + 10), hp - size - 22 - ys + 1)
+            ix = rng.integers(-(xs + 10), wp - size - 22 - xs + 1)
+            for i, (ey, ex) in enumerate(((0, 0), (1, 1), (0, 1), (1, 0))):
+                if i < n:
+                    iy[i] = -(ys[i] + 10) if ey == 0 else hp - size - 22 - ys[i]
+                    ix[i] = -(xs[i] + 10) if ex == 0 else wp - size - 22 - xs[i]
+            ob = np.stack([cur[y:y + size, x:x + size] for y, x in zip(ys, xs)]
+                          ) if n else np.zeros((0, size, size))
+            args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+                    for a in (ob, ys, xs, iy, ix)]
+            got, want = _both(me.qpel_refine, rp, *args, lam, size, bit_depth)
+            _assert_qpel_equal(got, want)
+            assert got[3].shape == (n, size, size)
+            if lam == 0.0 and n:
+                assert torch.equal(got[0], 4 * args[3] - 3)
+                assert torch.equal(got[1], 4 * args[4] - 3)
+
+
+def _assert_qpel_equal(got, want):
+    import torch
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+    assert torch.equal(got[3], want[3])
 
 
 @pytest.mark.parametrize("mode,n", [("ldp", 3), ("ldb", 3), ("ra", 5)])

@@ -19,10 +19,10 @@
 // Every argmin keeps the first minimum, as vvc's strict `<` scans do.
 //
 // Bounds (1080p inter picture): me_prep and me_coarse move a few MB (bytes);
-// me_int does 81 SSEs of s*s samples per block and me_qpel 7 horizontal
-// and 49 vertical 8-tap passes plus 49 SATDs per block (integer operations,
-// CUDA cores); me_block_err reads the prediction and the picture and writes
-// the plane once (bytes).
+// me_int does 81 SSEs of s*s samples per block and me_qpel filters 3
+// horizontal and 12 vertical phase planes and takes 49 SATDs per block
+// (operations, CUDA cores); me_block_err reads the prediction and the
+// picture and writes the plane once (bytes).
 #include <cuda_runtime.h>
 
 namespace {
@@ -279,150 +279,320 @@ __global__ void me_int_kernel(const int* __restrict__ refpad,
 }
 
 // ---------------------------------------------------------------------------
-// me_qpel: one CTA per block.  Loads the re-centred window w2 (M = S+12
-// square at padded (ys+16+iy-6, xs+16+ix-6)).  For each horizontal phase
-// qx = -3..3: the horizontal 8-tap pass into shared memory (unshifted, or
-// <<6 at fx = 0), then 7 (qy) x T (8x8 tiles) jobs, one per thread: the
-// vertical pass of the tile (unshifted, or <<6 at fy = 0), (acc+2048)>>12,
-// clip, difference with the block, 8x8 Hadamard, (sum|.|+2)>>2, added to
-// the candidate's SATD with a shared integer atomic (exact).  Then the
-// costs fma(sqrt(lambda), mvb[|mvy|] + mvb[|mvx|], (float)satd) are
-// scanned in vvc's order (qy outer, qx inner) for the first minimum, and
-// the winner's prediction is recomputed and written.  The CTA has as many
-// threads as a phase has jobs, rounded to warps (32 at S = 8 and 16, 128
-// at 32, 256 at 64), so that small blocks do not leave most idle.  int32
-// is enough:
-// the largest magnitude is about 1023 * 112 * 112 < 1.3e7 (10 bit).
+// me_qpel: the 49 quarter-pel candidates (qy, qx) in ±3 around the integer
+// winner (iy, ix).  Every candidate's prediction is a sub-window of one of
+// 16 phase planes P[fy][fx] of (S+1)^2 samples:
+//   pred(qy, qx)[r][c] = P[fy][fx][r + 1 + iyo][c + 1 + ixo],
+//   fy = qy & 3, iyo = qy >> 2 (-1 or 0), and likewise fx, ixo.
+// With W the window w2[2 .. S+9][2 .. S+9] (w2: the re-centred window at
+// padded (ys+16+iy-6, xs+16+ix-6)):
+//   H[fx][a][j] = sum_k f[fx][k] W[a][j+k]   (fx = 1..3, unshifted)
+//   H[0][a][j]  = W[a][j+3] << 6
+//   P[fy][fx][i][j] = clip((sum_k f[fy][k] H[fx][i+k][j] + 2048) >> 12)
+//                     (fy = 1..3), or clip(((H[fx][i+3][j] << 6) + 2048)
+//                     >> 12) at fy = 0
+// — vvc's two passes (the horizontal unshifted or << 6 at fx = 0, the
+// vertical unshifted or << 6 at fy = 0, then (acc + 2048) >> 12 and the
+// clip), each plane filtered once instead of once per candidate.  The
+// arithmetic is float32 on the CUDA cores: every value is an integer below
+// 1023 * 112 * 112 < 1.3e7 < 2^24, so each FMA, the + 2048, the * 2^-12 and
+// the floor are exact; the SATD's differences, butterflies and sums stay
+// below 2^23 too.
+//
+// A CTA takes NB blocks (4 at S = 8, else 1) and walks each block in row
+// strips of R rows (R = S at S <= 16, 8 above, so that a strip's planes fit
+// in shared memory beside the others of the SM): per strip it loads the
+// R+8 window rows it needs (plain loads converted to float: a window row
+// starts at any column, so 16-byte cp.async does not apply, and the load
+// is a few percent of the work), filters the 4 horizontal planes, then
+// the 16 phase planes on its R+1 rows, then scores the 49 candidates on
+// the strip's 8x8 tiles.  A tile's SATD is taken by 8 lanes, lane c holding
+// its column: the 8-point Hadamard down the column in registers, across
+// the 8 lanes by xor shuffles, then sum |.| by shuffles and
+// (sum + 2) >> 2 for the tile (vvc rounds per tile).  The CTA has 7 x U
+// such 8-lane groups, U = the tiles of all its blocks' strips: group g
+// scores tile g % U for qx = g / U - 3 and the 7 qy in turn, so that every
+// lane has a job in each of the 7 rounds, lanes next to each other read
+// samples next to each other, and each lane keeps its block column in
+// registers.  The tiles' SATDs go to shared memory per (candidate, tile)
+// and are summed per candidate (integers, no atomics), the costs
+// fma(sqrt(lambda), mvb[|mvy|] + mvb[|mvx|], (float)satd) follow, and a
+// warp per block takes the lexicographic (cost, k) minimum, k = (qy+3)*7 +
+// (qx+3) — the first minimum of vvc's strict `<` scan in qy-outer order.
+// The winner's prediction is copied from its plane where the block was one
+// strip; a strip-mined block (S = 32, 64) has lost its planes by then and
+// filters the winner's one plane once more.  Bound: operations (the three
+// horizontal planes, the twelve vertical ones and 49 SATDs of S^2 samples,
+// CUDA cores; no tensor cores: the values need exact 24-bit products).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void fwht8(int* v) {
+template <int F>
+__device__ __forceinline__ float luma_tap8(const float* x) {
+  // the normative 8-tap luma DCTIF, phases 0, 1/4, 1/2, 3/4
+  constexpr int kF[4][8] = {{0, 0, 0, 64, 0, 0, 0, 0},
+                            {-1, 4, -10, 58, 17, -5, 1, 0},
+                            {-1, 4, -11, 40, 40, -11, 4, -1},
+                            {0, 1, -5, 17, 58, -10, 4, -1}};
+  float acc = 0.f;
 #pragma unroll
-  for (int len = 1; len < 8; len <<= 1) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if ((i & len) == 0) {
-        const int a = v[i], b = v[i + len];
-        v[i] = a + b;
-        v[i + len] = a - b;
-      }
-    }
+  for (int k = 0; k < 8; ++k)
+    if (kF[F][k] != 0) acc = __fmaf_rn((float)kF[F][k], x[k], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float luma_tap8(int f, const float* x) {
+  switch (f) {
+    case 1: return luma_tap8<1>(x);
+    case 2: return luma_tap8<2>(x);
+    case 3: return luma_tap8<3>(x);
+  }
+  return __fmul_rn(x[3], 64.f);
+}
+
+// (acc + 2048) >> 12, clipped to [0, maxv]: exact for integer |acc| < 2^24
+__device__ __forceinline__ float qpel_round(float acc, float maxf) {
+  return fminf(fmaxf(floorf(__fmul_rn(__fadd_rn(acc, 2048.f), 1.f / 4096.f)),
+                     0.f), maxf);
+}
+
+template <int S, int R, int NB>
+struct QpelShape {
+  static constexpr int TX = S / 8;             // tiles in a row
+  static constexpr int TS = (R / 8) * TX;      // tiles in a strip
+  static constexpr int U = NB * TS;            // tiles of the CTA's strips
+  static constexpr int THREADS = 56 * U;       // 7 candidate rounds x U x 8
+  static constexpr int NSTRIP = S / R;
+  static constexpr int WW = S + 8;             // window row
+  static constexpr int HR = R + 8;             // window / H rows of a strip
+  static constexpr int HP = S + 1;             // H row
+  static constexpr int HPL = HR * HP;          // one H plane
+  // P row: at S = 16 a warp's four tiles are 2 x 2, and 18 puts their
+  // columns on four distinct bank octets
+  static constexpr int PP = S == 16 ? 18 : S + 1;
+  static constexpr int PPL = (R + 1) * PP;     // one P plane (strip)
+  static constexpr int PB0 = 16 * PPL;
+  // the blocks' P areas 8 banks apart (mod 32), for the same reason
+  static constexpr int PB = NB == 1 ? PB0 : PB0 + ((8 - PB0 % 32) + 32) % 32;
+  static constexpr int SMEM_WORDS = NB * PB + NB * 4 * HPL + 49 * U
+                                    + 49 * NB + 3 * NB;
+  static_assert(HR * WW <= PB0, "the window must fit in the P area");
+  static_assert(NB == 1 || NSTRIP == 1, "several blocks only unstripped");
+  static_assert(THREADS / 32 >= NB, "a warp per block for the argmin");
+  // the final pass of a strip-mined block: its whole window and one
+  // horizontal plane in the P and H areas
+  static_assert(NSTRIP == 1 || (S + 8) * (S + 8) + (S + 8) * (S + 1)
+                                   <= PB + 4 * HPL, "final pass");
+};
+
+// `rows` window rows from row0 + 2 and the columns 2 .. S+9 of each
+// block's w2, as float, into W (which shares the P area); org[b] is the
+// offset of w2[2][2] in refpad, -1 past n
+template <int S, int R, int NB>
+__device__ __forceinline__ void qpel_load_window(
+    float* W, const int* __restrict__ refpad, const long long* org, int wp,
+    int row0, int rows) {
+  using Q = QpelShape<S, R, NB>;
+  for (int i = threadIdx.x; i < NB * rows * Q::WW; i += Q::THREADS) {
+    const int b = i / (rows * Q::WW), rem = i % (rows * Q::WW);
+    const int a = rem / Q::WW, x = rem % Q::WW;
+    W[b * Q::PB + rem] = org[b] < 0 ? 0.f : (float)refpad[
+        org[b] + (long long)(row0 + a) * wp + x];
   }
 }
 
-template <int S>
-__device__ void hor_pass(const int* w2, int* hor, const int* filt, int qx) {
-  constexpr int M = S + 2 * kM2;
-  const int ixo = qx >> 2, fx = qx & 3;
-  const int c0 = ixo + kM2 - 3;
-  for (int i = threadIdx.x; i < M * S; i += blockDim.x) {
-    const int r = i / S, c = i % S;
-    int acc;
-    if (fx == 0) {
-      acc = w2[r * M + kM2 + c] << 6;
-    } else {
-      acc = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        acc += filt[fx * 8 + k] * w2[r * M + c0 + k + c];
-    }
-    hor[i] = acc;
+template <int S, int R, int NB>
+__global__ void __launch_bounds__(QpelShape<S, R, NB>::THREADS)
+me_qpel_kernel(const int* __restrict__ refpad, const int* __restrict__ ob,
+               const int* __restrict__ ys, const int* __restrict__ xs,
+               const int* __restrict__ iy, const int* __restrict__ ix,
+               const float* __restrict__ mvb, int wp, int n, float lam_m,
+               int maxv, int* __restrict__ mvy_out,
+               int* __restrict__ mvx_out, float* __restrict__ cost_out,
+               int* __restrict__ pred_out) {
+  using Q = QpelShape<S, R, NB>;
+  extern __shared__ __align__(16) float qpel_smem[];
+  long long* org = (long long*)qpel_smem;      // [NB] window origins
+  float* Ps = qpel_smem + 2 * NB;              // NB x [16][R+1][PP]
+  float* Hs = Ps + NB * Q::PB;                 // NB x [4][R+8][S+1]
+  int* ts = (int*)(Hs + NB * 4 * Q::HPL);      // [49][U] tile SATDs
+  float* cs = (float*)(ts + 49 * Q::U);        // [NB][49] costs
+  int* win = (int*)(cs + 49 * NB);             // [NB] winners
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * NB;
+  if (tid < NB) {
+    const int nb = n0 + tid;
+    org[tid] = nb < n ? (long long)(ys[nb] + kPad + iy[nb] - kM2 + 2) * wp
+                            + xs[nb] + kPad + ix[nb] - kM2 + 2
+                      : -1;
   }
-}
-
-__device__ __forceinline__ int ver_pass(const int* hor, const int* filt, int S,
-                                        int qy, int r, int c, int maxv) {
-  const int iyo = qy >> 2, fy = qy & 3;
-  int acc;
-  if (fy == 0) {
-    acc = hor[(kM2 + r) * S + c] << 6;
-  } else {
-    const int r0 = iyo + kM2 - 3;
-    acc = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      acc += filt[fy * 8 + k] * hor[(r0 + k + r) * S + c];
-  }
-  return min(max((acc + 2048) >> 12, 0), maxv);
-}
-
-template <int S>
-__global__ void me_qpel_kernel(const int* __restrict__ refpad,
-                               const int* __restrict__ ob,
-                               const int* __restrict__ ys,
-                               const int* __restrict__ xs,
-                               const int* __restrict__ iy,
-                               const int* __restrict__ ix,
-                               const int* __restrict__ filt_g,
-                               const float* __restrict__ mvb, int wp,
-                               float lam_m, int maxv,
-                               int* __restrict__ mvy_out,
-                               int* __restrict__ mvx_out,
-                               float* __restrict__ cost_out,
-                               int* __restrict__ pred_out) {
-  constexpr int M = S + 2 * kM2;
-  constexpr int T = (S / 8) * (S / 8);
-  __shared__ int w2[M * M];
-  __shared__ int hor[M * S];
-  __shared__ int satd[49];
-  __shared__ int filt[32];
-  __shared__ int win_q;
-  const int n = blockIdx.x;
-  const int oy = ys[n] + kPad + iy[n] - kM2, ox = xs[n] + kPad + ix[n] - kM2;
-  for (int i = threadIdx.x; i < M * M; i += blockDim.x)
-    w2[i] = refpad[(long long)(oy + i / M) * wp + ox + i % M];
-  for (int i = threadIdx.x; i < 32; i += blockDim.x) filt[i] = filt_g[i];
-  for (int i = threadIdx.x; i < 49; i += blockDim.x) satd[i] = 0;
-  const int* o = ob + (long long)n * S * S;
   __syncthreads();
-  for (int qxi = 0; qxi < 7; ++qxi) {
-    hor_pass<S>(w2, hor, filt, qxi - 3);
+  const float maxf = (float)maxv;
+  // this lane's SATD job: tile u of the strip, qx fixed, the 7 qy in turn
+  const int c = tid & 7, g = tid >> 3;
+  const int u = g % Q::U, k0 = g / Q::U;       // k0 = qx + 3
+  const int bu = u / Q::TS, t = u % Q::TS;
+  const int tr = t / Q::TX, tc = t % Q::TX;
+  const int fx = (k0 - 3) & 3, ixo = (k0 - 3) >> 2;
+  const int nu = n0 + bu;
+  const float* pcol = Ps + bu * Q::PB + fx * Q::PPL + (tr * 8 + 1) * Q::PP
+                      + tc * 8 + c + 1 + ixo;
+  int sat = 0;                                  // candidate tid's SATD
+  for (int s = 0; s < Q::NSTRIP; ++s) {
+    qpel_load_window<S, R, NB>(Ps, refpad, org, wp, s * R, Q::HR);
     __syncthreads();
-    for (int j = threadIdx.x; j < 7 * T; j += blockDim.x) {
-      const int qyi = j / T, tile = j % T;
-      const int ty = (tile / (S / 8)) * 8, tx = (tile % (S / 8)) * 8;
-      int d[8][8];
+    // the four horizontal planes on the strip's R+8 window rows
+    for (int i = tid; i < NB * Q::HR * Q::HP; i += Q::THREADS) {
+      const int b = i / (Q::HR * Q::HP), a = (i / Q::HP) % Q::HR;
+      const int j = i % Q::HP;
+      const float* w = Ps + b * Q::PB + a * Q::WW + j;
+      float x[8];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          d[r][c] = ver_pass(hor, filt, S, qyi - 3, ty + r, tx + c, maxv)
-                    - o[(ty + r) * S + tx + c];
-        fwht8(d[r]);
-      }
-      int sum = 0;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        int col[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) col[r] = d[r][c];
-        fwht8(col);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) sum += abs(col[r]);
-      }
-      atomicAdd(&satd[qyi * 7 + qxi], (sum + 2) >> 2);
+      for (int k = 0; k < 8; ++k) x[k] = w[k];
+      float* h = Hs + b * 4 * Q::HPL + a * Q::HP + j;
+      h[0] = __fmul_rn(x[3], 64.f);
+      h[Q::HPL] = luma_tap8<1>(x);
+      h[2 * Q::HPL] = luma_tap8<2>(x);
+      h[3 * Q::HPL] = luma_tap8<3>(x);
     }
     __syncthreads();
+    // the 16 phase planes on the strip's R+1 rows
+    for (int i = tid; i < NB * 4 * (R + 1) * Q::HP; i += Q::THREADS) {
+      const int j = i % Q::HP, rest = i / Q::HP;
+      const int r = rest % (R + 1), bf = rest / (R + 1);   // bf = b*4 + fx
+      const float* h = Hs + bf * Q::HPL + r * Q::HP + j;
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = h[k * Q::HP];
+      float* p = Ps + (bf >> 2) * Q::PB + (bf & 3) * Q::PPL + r * Q::PP + j;
+      p[0] = qpel_round(__fmul_rn(x[3], 64.f), maxf);
+      p[4 * Q::PPL] = qpel_round(luma_tap8<1>(x), maxf);
+      p[8 * Q::PPL] = qpel_round(luma_tap8<2>(x), maxf);
+      p[12 * Q::PPL] = qpel_round(luma_tap8<3>(x), maxf);
+    }
+    // this lane's column of the block (zero for a block past n)
+    float o[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      o[r] = nu < n ? (float)ob[(long long)nu * S * S
+                                + (s * R + tr * 8 + r) * S + tc * 8 + c]
+                    : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 7; ++m) {                // qy = m - 3
+      const int fy = (m - 3) & 3, iyo = (m - 3) >> 2;
+      const float* p = pcol + fy * 4 * Q::PPL + iyo * Q::PP;
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) v[r] = __fsub_rn(p[r * Q::PP], o[r]);
+#pragma unroll
+      for (int len = 1; len < 8; len <<= 1) {    // down the column
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if ((r & len) == 0) {
+            const float a = v[r], b = v[r + len];
+            v[r] = __fadd_rn(a, b);
+            v[r + len] = __fsub_rn(a, b);
+          }
+        }
+      }
+#pragma unroll
+      for (int len = 1; len < 8; len <<= 1) {    // across the 8 lanes
+        const float sg = (c & len) ? -1.f : 1.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          v[r] = __fmaf_rn(sg, v[r], __shfl_xor_sync(0xffffffffu, v[r], len));
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) sum = __fadd_rn(sum, fabsf(v[r]));
+#pragma unroll
+      for (int len = 1; len < 8; len <<= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, len));
+      if (c == 0) ts[(m * 7 + k0) * Q::U + u] = ((int)sum + 2) >> 2;
+    }
+    __syncthreads();
+    if (tid < NB * 49) {
+      const int b = tid / 49, k = tid % 49;
+#pragma unroll
+      for (int i = 0; i < Q::TS; ++i) sat += ts[k * Q::U + b * Q::TS + i];
+    }
   }
-  if (threadIdx.x == 0) {
-    int kb = 0;
-    float cb = 0.f;
-    for (int k = 0; k < 49; ++k) {
-      const int mvy = 4 * iy[n] + k / 7 - 3, mvx = 4 * ix[n] + k % 7 - 3;
+  if (tid < NB * 49) {
+    const int b = tid / 49, k = tid % 49, nb = n0 + b;
+    float cost = __int_as_float(0x7f800000);
+    if (nb < n) {
+      const int mvy = 4 * iy[nb] + k / 7 - 3, mvx = 4 * ix[nb] + k % 7 - 3;
       const float bits = __fadd_rn(mvb[abs(mvy)], mvb[abs(mvx)]);
-      const float c = __fmaf_rn(lam_m, bits, (float)satd[k]);
-      if (k == 0 || c < cb) { cb = c; kb = k; }
+      cost = __fmaf_rn(lam_m, bits, (float)sat);
     }
-    mvy_out[n] = 4 * iy[n] + kb / 7 - 3;
-    mvx_out[n] = 4 * ix[n] + kb % 7 - 3;
-    cost_out[n] = cb;
-    win_q = kb;
+    cs[tid] = cost;
   }
   __syncthreads();
-  const int kb = win_q;
-  hor_pass<S>(w2, hor, filt, kb % 7 - 3);
+  if ((tid >> 5) < NB) {
+    const int b = tid >> 5, lane = tid & 31, nb = n0 + b;
+    float cb = cs[b * 49 + lane];
+    int kb = lane;
+    if (lane + 32 < 49 && cs[b * 49 + lane + 32] < cb) {
+      cb = cs[b * 49 + lane + 32];
+      kb = lane + 32;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float c2 = __shfl_xor_sync(0xffffffffu, cb, off);
+      const int k2 = __shfl_xor_sync(0xffffffffu, kb, off);
+      if (c2 < cb || (c2 == cb && k2 < kb)) {
+        cb = c2;
+        kb = k2;
+      }
+    }
+    if (lane == 0) {
+      win[b] = kb;
+      if (nb < n) {
+        mvy_out[nb] = 4 * iy[nb] + kb / 7 - 3;
+        mvx_out[nb] = 4 * ix[nb] + kb % 7 - 3;
+        cost_out[nb] = cb;
+      }
+    }
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < S * S; i += blockDim.x)
-    pred_out[(long long)n * S * S + i] =
-        ver_pass(hor, filt, S, kb / 7 - 3, i / S, i % S, maxv);
+  if constexpr (Q::NSTRIP == 1) {
+    // the winner's prediction, copied from its phase plane
+    for (int i = tid; i < NB * S * S; i += Q::THREADS) {
+      const int b = i / (S * S), rc = i % (S * S), nb = n0 + b;
+      if (nb >= n) continue;
+      const int kb = win[b], qy = kb / 7 - 3, qx = kb % 7 - 3;
+      const int r = rc / S, cc = rc % S;
+      pred_out[(long long)nb * S * S + rc] = (int)Ps[
+          b * Q::PB + ((qy & 3) * 4 + (qx & 3)) * Q::PPL
+          + (r + 1 + (qy >> 2)) * Q::PP + cc + 1 + (qx >> 2)];
+    }
+  } else {
+    // strip-mined (NB = 1): the strips' planes are gone; filter the
+    // winner's one plane again over the whole block, its window and
+    // horizontal plane in the P and H areas
+    constexpr int WR = S + 8;
+    const int kb = win[0], qy = kb / 7 - 3, qx = kb % 7 - 3;
+    const int fyw = qy & 3, iyw = qy >> 2, fxw = qx & 3, ixw = qx >> 2;
+    float* hw = Ps + WR * Q::WW;                 // [S+8][S+1]
+    qpel_load_window<S, R, NB>(Ps, refpad, org, wp, 0, WR);
+    __syncthreads();
+    for (int i = tid; i < WR * Q::HP; i += Q::THREADS) {
+      const int a = i / Q::HP, j = i % Q::HP;
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = Ps[a * Q::WW + j + k];
+      hw[i] = luma_tap8(fxw, x);
+    }
+    __syncthreads();
+    for (int i = tid; i < S * S; i += Q::THREADS) {
+      const int r = i / S, cc = i % S;
+      const float* h = hw + (r + 1 + iyw) * Q::HP + cc + 1 + ixw;
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = h[k * Q::HP];
+      pred_out[(long long)n0 * S * S + i] =
+          (int)qpel_round(luma_tap8(fyw, x), maxf);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -472,17 +642,20 @@ int launch_int(const int* refpad, const int* ob, const int* ys, const int* xs,
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int S, int R, int NB>
 int launch_qpel(const int* refpad, const int* ob, const int* ys, const int* xs,
-                const int* iy, const int* ix, const int* filt,
-                const float* mvb,
-                int wp, int n, float lam_m, int maxv, int* mvy, int* mvx,
-                float* cost, int* pred, cudaStream_t st) {
-  // one thread per (qy, tile) job of a horizontal phase: 7·(S/8)² jobs
-  constexpr int kThreads = S <= 16 ? 32 : (S == 32 ? 128 : 256);
-  me_qpel_kernel<S><<<n, kThreads, 0, st>>>(refpad, ob, ys, xs, iy, ix, filt,
-                                            mvb, wp, lam_m, maxv, mvy, mvx,
-                                            cost, pred);
+                const int* iy, const int* ix, const float* mvb, int wp, int n,
+                float lam_m, int maxv, int* mvy, int* mvx, float* cost,
+                int* pred, cudaStream_t st) {
+  using Q = QpelShape<S, R, NB>;
+  const int smem = Q::SMEM_WORDS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      me_qpel_kernel<S, R, NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  me_qpel_kernel<S, R, NB><<<(n + NB - 1) / NB, Q::THREADS, smem, st>>>(
+      refpad, ob, ys, xs, iy, ix, mvb, wp, n, lam_m, maxv, mvy, mvx, cost,
+      pred);
   return (int)cudaGetLastError();
 }
 
@@ -538,18 +711,19 @@ extern "C" int me_int_launch(const int* refpad, const int* ob, const int* ys,
 
 extern "C" int me_qpel_launch(const int* refpad, const int* ob, const int* ys,
                               const int* xs, const int* iy, const int* ix,
-                              const int* filt, const float* mvb, int wp, int n,
-                              float lam_m, int s, int maxv, int* mvy, int* mvx,
-                              float* cost, int* pred, void* stream) {
+                              const float* mvb, int wp, int n, float lam_m,
+                              int s, int maxv, int* mvy, int* mvx, float* cost,
+                              int* pred, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define ME_QPEL(S)                                                        \
-  return launch_qpel<S>(refpad, ob, ys, xs, iy, ix, filt, mvb, wp, n, lam_m, \
-                        maxv, mvy, mvx, cost, pred, st)
+  // (S, strip rows, blocks per CTA)
+#define ME_QPEL(S, R, NB)                                                     \
+  return launch_qpel<S, R, NB>(refpad, ob, ys, xs, iy, ix, mvb, wp, n, lam_m, \
+                               maxv, mvy, mvx, cost, pred, st)
   switch (s) {
-    case 8: ME_QPEL(8);
-    case 16: ME_QPEL(16);
-    case 32: ME_QPEL(32);
-    case 64: ME_QPEL(64);
+    case 8: ME_QPEL(8, 8, 4);
+    case 16: ME_QPEL(16, 16, 1);
+    case 32: ME_QPEL(32, 8, 1);
+    case 64: ME_QPEL(64, 8, 1);
   }
 #undef ME_QPEL
   return (int)cudaErrorInvalidValue;

@@ -471,13 +471,13 @@ def _qpel_refine_cuda(refpad, ob, ys, xs, iy, ix, lam_m, s: int,
     if n == 0:
         return mvy, mvx, cost, pred
     fn = ops.lib("me_qpel").me_qpel_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(refpad.data_ptr(), ob.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-             iy.data_ptr(), ix.data_ptr(), _filters_dev(str(dev)).data_ptr(),
-             _mv_bits_dev(str(dev)).data_ptr(), refpad.shape[1], n,
+             iy.data_ptr(), ix.data_ptr(), _mv_bits_dev(str(dev)).data_ptr(),
+             refpad.shape[1], n,
              float(np.float32(lam_m)), s, (1 << bit_depth) - 1,
              mvy.data_ptr(), mvx.data_ptr(), cost.data_ptr(), pred.data_ptr(),
              ops.stream_ptr(ob))

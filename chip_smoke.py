@@ -151,6 +151,9 @@ import torch
 # non-tensor-core float32 rate used as the CUDA-core operation rate
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+# dependent float32 add latency in SM cycles (Volta through Hopper): a
+# step of the ALF B100 walk's chain
+FADD_CYCLES = 4
 W_HD, H_HD = 1920, 1080
 # the slice-4b path [16]: frames and GOP size (bench_ra1080: 17 and 16;
 # cut to 9 and 8 so that the script, slice 6's phases included, stays well
@@ -308,6 +311,23 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / CORE_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def alf_walk(alf, F, t, key):
+    """The (group, row) entries of B100 that the ordered walk decides
+    (Σ|F·t| ≥ 2^24 from B100_GEMV_MIN_POINTS grid points on), as a [100,
+    12] mask, and its longest chain: the most points of one walked group
+    in one lane p mod 8."""
+    if t.numel() < alf.B100_GEMV_MIN_POINTS:
+        return torch.zeros((100, 12), dtype=torch.bool, device=t.device), 0
+    absb = torch.zeros((100, 12), dtype=torch.int64, device=t.device)
+    absb.index_add_(0, key, (F * t[None]).abs().T)
+    need = absb >= (1 << 24)
+    per = torch.zeros((100, 8), dtype=torch.int64, device=t.device)
+    lane = torch.arange(t.numel(), device=t.device) % 8
+    per.index_put_((key, lane), torch.ones_like(key), accumulate=True)
+    walked = need.any(dim=1)
+    return need, int(per[walked].max()) if walked.any() else 0
 
 
 def ref_lines_read_bytes(h: int, w: int, xs, ys, bw: int,
@@ -2377,43 +2397,79 @@ def main() -> int:
             2, 3, 0, 1), got[0].to(torch.int32))
         stats["sao_stats"]["library_ms"] = (
             stats["sao_stats"]["library_ms"] or 0.0) + cuda_ms(lib_sao)
-    o_np, r_np = frames[0].y, rec2b.y
-    cls4, tr4 = alf.alf_classify(r_np, 8)
-    targs = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-             for a in (o_np, r_np, cls4, tr4)]
-    got = alf.alf_stats_dev(*targs)
-    with ops.plain():
-        want = alf.alf_stats_dev(*targs)
-    for g, wv in zip(got, want):
-        compare("alf_stats", g.view(torch.int32), wv.view(torch.int32))
-    f = lambda: alf.alf_stats_dev(*targs)
-    k_ms = cuda_ms(f)
-    with ops.plain():
-        p_ms = cuda_ms(f, iters=3, warmup=1)
-    npts = ((H_HD + 1) // 2) * ((W_HD + 1) // 2)
-    # bytes it must move: r whole, o's even rows at sector granularity,
-    # cls4 and tr4, the statistics written; 90 multiply-adds per point
-    add_time("alf_stats", k_ms, p_ms,
-             H_HD * W_HD * 4 + (H_HD // 2) * W_HD * 4
-             + 2 * cls4.size * 4 + (100 * 90 + 50) * 8, npts * 2 * 92)
-    # library: a float64 einsum of the one-hot [P, 100] group matrix with
-    # the per-point products F·Fᵀ and F·t ([P, 156]); exact in float64
-    F, t, key, _ = alf._alf_grid(*targs)
-    Ff, tf = F.to(torch.float64), t.to(torch.float64)
-    prod = torch.cat([(Ff[:, None] * Ff[None, :]).reshape(144, -1),
-                      Ff * tf[None]]).T.contiguous()
+    # ALF on the 2b picture's luma (the kernel line's numbers), then on a
+    # 1080p 10-bit picture where the ordered B100 walk decides (the family
+    # of tests/test_torch_alf.py's test_alf_b100_bit_equal_1080p_10bit:
+    # synth_frame 3 << 2 plus seeded uniform noise of ±160)
+    walk_rng = np.random.default_rng(0)
+    o10 = synth_frame(W_HD, H_HD, 3).y.astype(np.int32) << 2
+    r10 = np.clip(o10 + walk_rng.integers(-160, 161, o10.shape), 0,
+                  1023).astype(np.int32)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    alf_pics = {}
+    for label, o_np, r_np, bd in (("2b 8-bit", frames[0].y, rec2b.y, 8),
+                                  ("10-bit walk", o10, r10, 10)):
+        cls4, tr4 = alf.alf_classify(r_np, bd)
+        targs = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                 for a in (o_np, r_np, cls4, tr4)]
+        got = alf.alf_stats_dev(*targs)
+        with ops.plain():
+            want = alf.alf_stats_dev(*targs)
+        for g, wv in zip(got, want):
+            compare("alf_stats", g.view(torch.int32), wv.view(torch.int32))
+        f = lambda: alf.alf_stats_dev(*targs)
+        k_ms = cuda_ms(f)
+        with ops.plain():
+            p_ms = cuda_ms(f, iters=3, warmup=1)
+        npts = ((H_HD + 1) // 2) * ((W_HD + 1) // 2)
+        # bytes it must move: r whole, o's even rows at sector granularity,
+        # cls4 and tr4, the statistics written; 90 multiply-adds per point
+        nbytes = (H_HD * W_HD * 4 + (H_HD // 2) * W_HD * 4
+                  + 2 * cls4.size * 4 + (100 * 90 + 50) * 8)
+        # library: a float64 einsum of the one-hot [P, 100] group matrix
+        # with the per-point products F·Fᵀ and F·t ([P, 156]); exact in
+        # float64
+        F, t, key, _ = alf._alf_grid(*targs)
+        need, chain = alf_walk(alf, F, t, key)
+        Ff, tf = F.to(torch.float64), t.to(torch.float64)
+        prod = torch.cat([(Ff[:, None] * Ff[None, :]).reshape(144, -1),
+                          Ff * tf[None]]).T.contiguous()
 
-    def lib_alf():
-        onehot = torch.nn.functional.one_hot(key, 100).to(torch.float64)
-        g = torch.einsum("pg,pk->gk", onehot, prod)
-        return g[:, :144].reshape(100, 12, 12), g[:, 144:]
-    la, lb = lib_alf()
-    compare("alf_stats", la.to(torch.float32).view(torch.int32),
-            got[0].view(torch.int32))
-    compare("alf_stats", lb.to(torch.float32).view(torch.int32),
-            got[1].view(torch.int32))
-    stats["alf_stats"]["library_ms"] = cuda_ms(lib_alf, iters=3, warmup=1)
-    del targs, F, t, key, Ff, tf, prod, la, lb
+        def lib_alf():
+            onehot = torch.nn.functional.one_hot(key, 100).to(torch.float64)
+            g = torch.einsum("pg,pk->gk", onehot, prod)
+            return g[:, :144].reshape(100, 12, 12), g[:, 144:]
+        la, lb = lib_alf()
+        compare("alf_stats", la.to(torch.float32).view(torch.int32),
+                got[0].view(torch.int32))
+        # B100: on the 2b picture every entry (the walk's order rounds to
+        # the exact sums there); on the 10-bit one the entries not walked
+        keep = torch.ones_like(need) if label == "2b 8-bit" else ~need
+        compare("alf_stats", lb.to(torch.float32)[keep].view(torch.int32),
+                got[1][keep].view(torch.int32))
+        l_ms = cuda_ms(lib_alf, iters=3, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, npts * 2 * 92)
+        alf_pics[label] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "walked_entries": int(need.sum()),
+            "longest_chain": chain,
+            "chain_floor_ms": chain * FADD_CYCLES / (sm_mhz * 1e3)}
+        if label == "2b 8-bit":
+            add_time("alf_stats", k_ms, p_ms, nbytes, npts * 2 * 92)
+            stats["alf_stats"]["library_ms"] = l_ms
+        del targs, F, t, key, Ff, tf, prod, la, lb
+    for label, st in alf_pics.items():
+        print(f"[3] alf_stats {label}: exact vs plain; per 1080p frame: "
+              f"kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, "
+              f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}), library "
+              f"{st['library_ms']:.4f} ms; walk: {st['walked_entries']} "
+              f"(group, row) entries, longest chain {st['longest_chain']} "
+              f"points, its floor {st['chain_floor_ms']:.4f} ms "
+              f"({FADD_CYCLES} cycles a dependent add at the SM's "
+              f"{sm_mhz:.0f} MHz)", flush=True)
     for name in ("sao_stats", "alf_stats"):
         st = stats[name]
         st["bound_ms"], st["bound_by"] = bound_ms(st["bytes"], st["ops"])
@@ -2787,6 +2843,8 @@ def main() -> int:
               "bound_by": stats[k]["bound_by"],
               "library_ms": stats[k]["library_ms"]} for k in ops.COUNTS]
     for row in table:
+        if row["name"] == "alf_stats":
+            row["pictures"] = alf_pics
         if row["name"] in rect:
             r = rect[row["name"]]
             row["rect"] = {"launches": launches14[row["name"]],

@@ -120,6 +120,20 @@ def test_alf_b100_bit_equal_1080p_10bit(amp):
     assert (exact != want).any()
 
 
+def test_alf_stats_grid():
+    """The CUDA wrapper's host rule: the grid, the GEMV order from 4096
+    grid points on (128×128 reaches it, 112×146 stops 8 short), and maps
+    that must cover the grid."""
+    from vvc_torch.kernels import alf as port
+    assert port._stats_grid(128, 128, 32, 32) == (4096, True)
+    assert port._stats_grid(112, 146, 28, 37) == (4088, False)
+    assert port._stats_grid(1080, 1920, 270, 480) == (518400, True)
+    with pytest.raises(ValueError, match="cover"):
+        port._stats_grid(112, 146, 28, 36)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port._stats_grid(114, 146, 29, 37)          # 57 × 73 points
+
+
 def _alf_fields(res):
     luma, flags, chroma, delta = res
     return ((None if luma is None else tuple(np.asarray(x).tolist()

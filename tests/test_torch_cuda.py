@@ -289,20 +289,62 @@ def test_sao_stats_equal_plain(dev, bit_depth, cs, h, w):
     assert ops.COUNTS["sao_stats"] == before + 1
 
 
-@pytest.mark.parametrize("bit_depth,h,w", [(8, 240, 416), (10, 136, 200),
-                                          (8, 1080, 1920), (10, 64, 128)])
-def test_alf_stats_equal_plain(dev, bit_depth, h, w):
+def _alf_stats_picture(kind, bit_depth, h, w):
+    """(orig, rec, cls4, tr4) for test_alf_stats_equal_plain; the maps
+    cover the grid (⌈h/4⌉ × ⌈w/4⌉, edge-padded where 4 does not divide)."""
+    from vvc_torch.io.synth import synth_frame
+    from vvc_torch.kernels import alf
+    mx = (1 << bit_depth) - 1
+    if kind == "family":
+        # tests/test_torch_alf.py's picture(w, h, bit_depth, 160, 0, t=3)
+        rng = np.random.default_rng(0)
+        orig = synth_frame(w, h, 3).y.astype(np.int32) << (bit_depth - 8)
+        rec = orig + rng.integers(-160, 161, orig.shape)
+    elif kind == "flat":
+        # one texture everywhere: diagonal stripes (period 5) plus noise
+        rng = np.random.default_rng(8)
+        yy, xx = np.mgrid[0:h, 0:w]
+        rec = (100 + np.array([0, 30, 12, 12, 0])[(xx + 3 * yy) % 5]
+               + rng.integers(-2, 3, (h, w)))
+        orig = (200 + rng.integers(-2, 3, (h, w))).astype(np.int32)
+    else:
+        rng = np.random.default_rng(bit_depth + h)
+        orig = rng.integers(0, mx + 1, (h, w)).astype(np.int32)
+        rec = orig + rng.integers(-20, 21, (h, w))
+    rec = np.clip(rec, 0, mx).astype(np.int32)
+    cls4, tr4 = alf.alf_classify(rec, bit_depth)
+    if kind == "keys100":
+        cls4 = rng.integers(0, 25, cls4.shape).astype(np.int32)
+        tr4 = rng.integers(0, 4, cls4.shape).astype(np.int32)
+    pad = ((0, -(-h // 4) - cls4.shape[0]), (0, -(-w // 4) - cls4.shape[1]))
+    return orig, rec, np.pad(cls4, pad, "edge"), np.pad(tr4, pad, "edge")
+
+
+@pytest.mark.parametrize("bit_depth,h,w,kind", [
+    pytest.param(8, 240, 416, "noise", id="8-240-416"),
+    pytest.param(10, 136, 200, "noise", id="10-136-200"),
+    pytest.param(8, 1080, 1920, "noise", id="8-1080-1920"),
+    pytest.param(10, 64, 128, "noise", id="10-64-128"),
+    pytest.param(8, 1080, 1920, "flat", id="flat-8-1080-1920"),
+    pytest.param(8, 240, 416, "keys100", id="keys100-8-240-416"),
+    pytest.param(10, 1080, 1920, "family", id="family-10-1080-1920"),
+    pytest.param(8, 128, 128, "noise", id="8-128-128"),
+    pytest.param(10, 112, 146, "noise", id="10-112-146")])
+def test_alf_stats_equal_plain(dev, bit_depth, h, w, kind):
     """ALF statistics, bit-equal to the plain twin (exact sums rounded once
     to float32; B100 in vvc's GEMV order from 4096 grid points on, which
-    64×128 stays below)."""
+    64×128 and 112×146 (4088 points) stay below and 128×128 (4096) reaches).
+    136×200's grid (68×100) leaves partial 32×32 tiles; "flat" puts 99 % of
+    the points in one key, every row of which the ordered walk decides
+    (the longest chain); "keys100" gives every key points in most tiles;
+    "family" is tests/test_torch_alf.py's 1080p 10-bit picture, where the
+    walk decides some entries."""
     import torch
     from vvc_torch import ops
     from vvc_torch.kernels import alf
-    rng = np.random.default_rng(bit_depth + h)
-    mx = (1 << bit_depth) - 1
-    orig = rng.integers(0, mx + 1, (h, w)).astype(np.int32)
-    rec = np.clip(orig + rng.integers(-20, 21, (h, w)), 0, mx).astype(np.int32)
-    cls4, tr4 = alf.alf_classify(rec, bit_depth)
+    orig, rec, cls4, tr4 = _alf_stats_picture(kind, bit_depth, h, w)
+    if kind == "keys100":
+        assert np.unique(cls4 * 4 + tr4).size == 100
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     before = ops.COUNTS["alf_stats"]
     got, want = _both(alf.alf_stats_dev, t(orig), t(rec), t(cls4), t(tr4))

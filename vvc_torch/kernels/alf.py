@@ -334,7 +334,6 @@ def apply_alf_plane(plane: np.ndarray, coeffs, radius: int, bit_depth: int,
 
 N_PAIRS = 12        # diamond_pairs(3)
 N_GROUPS = 100      # class · 4 + transpose
-ALF_STATS_CTAS = 264    # CTAs of the statistics pass (2 per H100 SM)
 
 
 def _alf_grid(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
@@ -444,40 +443,60 @@ def alf_stats_plain(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
             per[:, 1].contiguous())
 
 
-def _alf_stats_cuda(o, r, cls4, tr4):
-    ops.check_cuda_i32("alf_stats", o, r, cls4, tr4)
-    h, w = o.shape
-    # per group: 78 upper-triangle FᵀF sums, 12 Fᵀt sums; per class Σt²
-    # and the count — exact int64, rounded once to float32 below
-    n = N_GROUPS * 90 + 25 * 2
-    npts = ((h + 1) // 2) * ((w + 1) // 2)
-    blocks = max(1, min(ALF_STATS_CTAS, -(-npts // 512)))
-    partial = torch.empty((blocks, n), dtype=torch.int64, device=o.device)
-    acc = torch.empty((n,), dtype=torch.int64, device=o.device)
+def _stats_grid(h: int, w: int, h4: int, w4: int):
+    """The `alf_stats` kernel's grid for [h, w] planes and [h4, w4]
+    classification maps → (grid points P, whether B100 takes the GEMV
+    order).  Raises on maps too small for the grid (each 4×4 cell covers
+    2×2 grid points) and on a GEMV grid that is not a multiple of 8."""
+    hs, ws = (h + 1) // 2, (w + 1) // 2
+    if h4 < (hs + 1) // 2 or w4 < (ws + 1) // 2:
+        raise ValueError(f"alf_stats: classification maps {h4}×{w4} do not "
+                         f"cover the {hs}×{ws} grid")
+    npts = hs * ws
     gemv = npts >= B100_GEMV_MIN_POINTS
     if gemv and npts % 8:
         raise ValueError("alf_stats: the GEMV order needs a multiple of 8 "
                          "grid points")
-    b100 = torch.empty((N_GROUPS, N_PAIRS), dtype=torch.float32,
-                       device=o.device)
+    return npts, gemv
+
+
+@lru_cache(maxsize=None)
+def _stats_launch():
     fn = ops.lib("alf_stats").alf_stats_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(o.data_ptr(), r.data_ptr(), cls4.data_ptr(), tr4.data_ptr(),
-             h, w, cls4.shape[1], partial.data_ptr(), blocks, acc.data_ptr(),
-             b100.data_ptr(), int(gemv), ops.stream_ptr(o))
+    return fn
+
+
+def _alf_stats_cuda(o, r, cls4, tr4):
+    ops.check_cuda_i32("alf_stats", o, r, cls4, tr4)
+    if tr4.shape != cls4.shape or r.shape != o.shape:
+        raise ValueError("alf_stats: o/r and cls4/tr4 must match in shape")
+    h, w = o.shape
+    npts, gemv = _stats_grid(h, w, *cls4.shape)
+    # one scratch buffer (csrc/alf_stats.cu alf_stats_launch): the int64
+    # sums (104 a key) and the walk's counters (one a key); for the GEMV
+    # order's walk its lane sums (float32), each grid point's key byte and
+    # its 12 products F·t (float32); each part a multiple of 16 bytes
+    walk = npts if gemv else 0
+    sizes = [N_GROUPS * 105 * 8, N_GROUPS * 8 * N_PAIRS * 4 if gemv else 0,
+             -(-walk // 16) * 16, 48 * walk]
+    acc, lanes, keys, ft = torch.empty(
+        (sum(sizes),), dtype=torch.uint8, device=o.device).split(sizes)
+    # the outputs, one float32 buffer: A100, B100, sse0, npx
+    a, b, sse0, npx = torch.empty(
+        (N_GROUPS * (N_PAIRS + 1) * N_PAIRS + 50,), dtype=torch.float32,
+        device=o.device).split([N_GROUPS * N_PAIRS * N_PAIRS,
+                                N_GROUPS * N_PAIRS, 25, 25])
+    err = _stats_launch()(
+        o.data_ptr(), r.data_ptr(), cls4.data_ptr(), tr4.data_ptr(), h, w,
+        cls4.shape[1], acc.data_ptr(), keys.data_ptr(), ft.data_ptr(),
+        lanes.data_ptr(), a.data_ptr(), b.data_ptr(), sse0.data_ptr(),
+        npx.data_ptr(), int(gemv), ops.stream_ptr(o))
     ops.launched("alf_stats", err)
-    g = acc[:N_GROUPS * 90].reshape(N_GROUPS, 90).to(torch.float32)
-    iu = torch.triu_indices(N_PAIRS, N_PAIRS, device=o.device)
-    a = torch.zeros((N_GROUPS, N_PAIRS, N_PAIRS), dtype=torch.float32,
-                    device=o.device)
-    a[:, iu[0], iu[1]] = g[:, :78]
-    a[:, iu[1], iu[0]] = g[:, :78]
-    per = acc[N_GROUPS * 90:].reshape(25, 2).to(torch.float32)
-    return (a, b100 if gemv else g[:, 78:].contiguous(),
-            per[:, 0].contiguous(), per[:, 1].contiguous())
+    return (a.view(N_GROUPS, N_PAIRS, N_PAIRS), b.view(N_GROUPS, N_PAIRS),
+            sse0, npx)
 
 
 def alf_stats_dev(o: torch.Tensor, r: torch.Tensor, cls4: torch.Tensor,
